@@ -1,0 +1,55 @@
+"""Device dispatch for the single-source kernels.
+
+A CUDA tensor goes through the hand-written kernel, a CPU tensor through its
+plain PyTorch version; nothing else decides, and a kernel that fails raises
+(there is no fallback).  Shapes go in as they are: the CUDA kernels mask
+their ragged edge themselves, so nothing is padded.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import frontier_sweep as _sweep
+from repro_torch.kernels import pull_ss as _pull_ss
+from repro_torch.kernels import ref as kref
+
+KERNELS = (_pull_ss.pull_ss, _pull_ss.pull_ss_packed, _sweep.frontier_sweep)
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type == "cpu"
+
+
+def pull_ss(masks: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
+    if _on_cpu(masks):
+        return kref.pull_ss_ref(masks, alphas)
+    return _pull_ss.pull_ss(masks, alphas)
+
+
+def pull_ss_packed(masks_packed: torch.Tensor,
+                   alphas: torch.Tensor) -> torch.Tensor:
+    if _on_cpu(masks_packed):
+        return kref.pull_ss_packed_ref(masks_packed, alphas)
+    return _pull_ss.pull_ss_packed(masks_packed, alphas)
+
+
+def frontier_sweep(v_curr, v_next, level, ell: int, *, sigma: int = 8):
+    if _on_cpu(v_curr):
+        return kref.frontier_sweep_ref(v_curr, v_next, level, ell, sigma=sigma)
+    return _sweep.frontier_sweep(v_curr, v_next, level, ell, sigma=sigma)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of each CUDA kernel wrapper since the last reset."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+pack_masks = _pull_ss.pack_masks
+unpack_marks = _pull_ss.unpack_marks

@@ -1,0 +1,65 @@
+"""Plain PyTorch versions of the single-source kernels.
+
+Each function computes what its CUDA kernel computes and what
+``repro.kernels.ref`` computes, bit for bit.  They run on any device: the
+CPU path of :mod:`repro_torch.kernels.ops` uses them, and the tests and
+``chip_smoke.py`` hold each CUDA kernel against them.
+
+Packed words are ``torch.int32`` tensors holding uint32 bit patterns (torch
+has no shifts on uint32).  The carry trick is evaluated in int64 so that no
+signed add overflows.
+"""
+from __future__ import annotations
+
+import torch
+
+_LOW7 = 0x7F7F7F7F
+_BYTE_LSB = 0x01010101
+_WORD = 0xFFFFFFFF
+
+
+def pull_ss_ref(masks: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
+    """SS-BFS pull over the (popc, AND) semiring.
+
+    masks:  (N_v, tau) uint8 — sigma-bit connectivity mask per slice
+    alphas: (N_v,)     uint8 — frontier word of the parent slice set
+    returns marks (N_v, tau) uint8 in {0,1}: popc(mask & alpha) > 0
+    """
+    return ((masks & alphas[:, None]) != 0).to(torch.uint8)
+
+
+def pull_ss_packed_ref(masks_packed: torch.Tensor,
+                       alphas: torch.Tensor) -> torch.Tensor:
+    """Packed-word pull: 4 slices per 32-bit word.
+
+    masks_packed: (N_v, tau//4) int32 bit patterns (little-endian byte k =
+                  slice 4w+k)
+    alphas:       (N_v,) uint8
+    returns (N_v, tau//4) int32 bit patterns with each byte in {0,1}.
+    """
+    # alpha repeated in all four bytes, i.e. alpha * 0x01010101
+    a32 = alphas[:, None].expand(-1, 4).contiguous().view(torch.int32)
+    t = (masks_packed & a32).to(torch.int64) & _WORD
+    # per-byte nonzero: high bit of ((t & 0x7f..) + 0x7f..) | t
+    nz = ((t & _LOW7) + _LOW7) | t
+    return ((nz >> 7) & _BYTE_LSB).to(torch.int32)
+
+
+def frontier_sweep_ref(v_curr: torch.Tensor, v_next: torch.Tensor,
+                       level: torch.Tensor, ell: int, sigma: int = 8):
+    """Stage-2 frontier finalization (paper Alg. 3 lines 33-50), fused.
+
+    v_curr, v_next: (n,) uint8 visited bytes in {0,1}, n % sigma == 0
+    level:          (n,) int32
+    ell:            current BFS depth
+    returns (v_curr_new, level_new, f_words, active_sets):
+      f_words     (n//sigma,) uint8 — sigma-bit frontier word per slice set
+      active_sets (n//sigma,) uint8 in {0,1}
+    """
+    diff = v_next & (1 - v_curr)
+    level_new = torch.where(diff != 0, ell, level)
+    weights = 1 << torch.arange(sigma, dtype=torch.int32, device=diff.device)
+    words = (diff.reshape(-1, sigma).to(torch.int32) * weights).sum(-1)
+    f_words = words.to(torch.uint8)
+    active_sets = (words != 0).to(torch.uint8)
+    return v_next, level_new, f_words, active_sets
