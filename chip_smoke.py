@@ -6,33 +6,60 @@
 Run from the root of a checkout; it needs one CUDA device, and nvcc to build
 the kernels.  Phases, each fatal (exit code 1, no result line):
 
-1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (sm_90a).
+1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (sm_90a),
+   one nvcc per source, all at once.
 2. Each kernel against its plain PyTorch version on the card, exact
    equality, over the shape pool of tests/test_kernel_parity.py (random
    graphs, sigma in {2,4,8}, tau in {1,2,4}, ragged n, empty frontiers) and
-   tau in {4,128} for the packed pull.
+   tau in {4,128} for the packed layouts; kappa in {8,32,48,3} for the
+   byteplane pull and {32,64} for the packed kernels, all-duplicate rows for
+   the scatter, random int8 planes (negative weights) for the MMA pull, and
+   a ragged VSS count that the MMA pull must refuse.
 3. The main path at full size: kron (RMAT) scale 22, edge factor 16,
    through ``Blest.preprocess(g, reorder="natural", probe_switching=True)``
    and ``Blest.bfs`` from 4 seeded sources under all 8 driver combinations
    (fused/bucketed x lazy/eager x packed/unpacked), each equal to the
    ``ref_bfs.bfs_levels`` oracle.  Launch counts are zeroed just before and
-   read just after; every kernel must have launched.  Then each kernel at
-   the production shapes (sigma, tau) = (8, 128) of this graph: equality
-   with its plain version, and times.
+   read just after; every single-source kernel must have launched.  Then
+   each kernel at the production shapes (sigma, tau) = (8, 128) of this
+   graph: equality with its plain version, and times.
+3b. The multi-source path on the same graph, launch counts zeroed first:
+   ``Blest.msbfs`` on 64 seeded sources (byteplane, each lane equal to
+   ``Blest.bfs``, two lanes to the oracle); ``Blest.closeness(kappa=64)``
+   over those sources, fused and bucketed, both normalisations, each equal
+   to the closeness computed from the 64 lanes; ``PackedMsBfs`` with
+   ``kernel="gather"`` and ``"mma"`` on 256 seeded sources, equal to each
+   other and, in far and reach, to four byteplane batches of 64.  Every
+   multi-source kernel must have launched.  Then each multi-source kernel at
+   this graph's shapes (the state two levels from those sources): equality
+   with its plain version over the whole array (the plain version runs in
+   chunks of VSSs where its int32 counts would not fit), and times; and one
+   dense multi-source level, stage by stage, in both layouts.
 4. The high-diameter family: road (2-D grid) scale 20, automatic reorder
-   dispatch (RCM), fused and bucketed runs equal to the oracle.
+   dispatch (RCM), fused and bucketed runs equal to the oracle; one batch of
+   32 sources through ``Blest.msbfs`` and ``PackedMsBfs(kernel="gather")``,
+   equal in far and reach, two lanes equal to ``Blest.bfs``.
 5. Every family of ``data/graphs.FAMILIES`` at scale 10 with automatic
-   dispatch, all 8 combinations equal to the oracle.
+   dispatch, all 8 combinations equal to the oracle; ``Blest.closeness``
+   over all sources (fused and bucketed, both normalisations) against
+   ``ref_bfs.closeness_centrality`` (rtol 1e-12); ``Blest.msbfs`` against
+   ``ref_bfs.multi_source_levels``; ``PackedMsBfs`` gather == mma ==
+   byteplane at kappa = 32.
 
 Prints, before the last line: the card's name and power limit (as
 nvidia-smi gives them), one JSON line ``{"kernels": [...]}`` (launches on the
-main path, ms per launch, plain version's ms, the bound and what sets it)
-and one JSON line ``{"bfs": [...]}`` (ms, edges/s and depth per BFS).  The
-last line is ``{"ok": true, "device": {...}}``.
+main path, ms per launch, plain version's ms, the bound and what sets it,
+the library call's ms), one JSON line ``{"bfs": [...]}`` (ms, edges/s and
+depth per BFS; per-stage ms of one dense level) and one JSON line
+``{"msbfs": [...]}`` (per multi-source run: graph, layout, kappa, levels,
+ms, lane-edges/s; per-stage ms of one dense multi-source level).  The last
+line is ``{"ok": true, "device": {...}}``.
 
 Edges/s is the number of directed edges (u, v) of the graph whose source u
 was reached, over the wall time of one ``Blest.bfs`` call (which includes
 copying the levels to the host and mapping them to original ids).
+Lane-edges/s sums that count over the lanes of a multi-source run, over the
+wall time of the call.
 """
 from __future__ import annotations
 
@@ -46,10 +73,12 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float32 rate of
-# the CUDA cores, the highest rate any of these integer kernels could issue at
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32 rate of
+# the CUDA cores (the highest rate any of these integer kernels could issue
+# at), and the dense int8 tensor-core rate (the MMA-form pulls' products)
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+INT8_MMA_OPS_PER_S = 1979e12
 # (n, sigma, tau): the pool of tests/test_kernel_parity.py, plus wide tau
 SHAPES = ((3, 8, 1), (8, 8, 2), (12, 4, 2), (9, 2, 4), (21, 2, 1), (33, 8, 2),
           (19, 4, 4), (24, 8, 2))
@@ -59,6 +88,14 @@ POOL_CASES = 48
 KRON_SOURCES = 4
 COMBOS = [(mode, lazy, packed) for mode in ("fused", "bucketed")
           for lazy in (True, False) for packed in (True, False)]
+MS_KAPPAS = (8, 32, 48, 3)   # byteplane lanes need no word alignment
+PACKED_KAPPAS = (32, 64)
+MS_SOURCES = 64              # kron: the byteplane batch
+PACKED_SOURCES = 256         # kron: the packed batch, kw = 8
+ROAD_SOURCES = 32
+CHUNK_VSS = 16384            # plain versions at full size run in chunks
+SS_KERNELS = ("pull_ss", "pull_ss_packed", "frontier_sweep")
+MS_KERNELS = ("pull_ms", "pull_ms_packed", "scatter_or", "pull_mma_ms_packed")
 
 
 def fail(msg: str) -> None:
@@ -77,20 +114,24 @@ class Smoke:
         import numpy as np
         import torch
 
-        from repro_torch.core import blest, ref_bfs
+        from repro_torch.core import blest, msbfs, msbfs_packed, ref_bfs
         from repro_torch.core.bvss import BvssConfig, build_bvss
         from repro_torch.core.graph import Graph
         from repro_torch.core.pipeline import Blest
         from repro_torch.data import graphs
-        from repro_torch.kernels import (frontier_sweep, ops, pull_ss,
-                                         ref as kref)
+        from repro_torch.kernels import (frontier_sweep, ops, pull_ms,
+                                         pull_ms_packed, pull_ss,
+                                         ref as kref, scatter_or, words)
+        from repro_torch.kernels import pull_mma_ms_packed as mma
 
         self.np, self.torch, self.dev = np, torch, dev
         self.blest, self.ref_bfs, self.Blest = blest, ref_bfs, Blest
+        self.msbfs, self.msbfs_packed, self.mma = msbfs, msbfs_packed, mma
         self.BvssConfig, self.build_bvss, self.Graph = (BvssConfig, build_bvss,
                                                         Graph)
-        self.graphs, self.ops = graphs, ops
+        self.graphs, self.ops, self.words = graphs, ops, words
         csrc = "src/repro_torch/kernels/csrc/blest_ss.cu"
+        ms_src = "src/repro_torch/kernels/csrc/blest_ms.cu"
         self.kernels = {
             "pull_ss": dict(
                 fn=pull_ss.pull_ss, plain=kref.pull_ss_ref, source=csrc,
@@ -102,20 +143,42 @@ class Smoke:
                 fn=frontier_sweep.frontier_sweep,
                 plain=kref.frontier_sweep_ref, source=csrc,
                 replaces="src/repro/kernels/frontier_sweep.py:43"),
+            "pull_ms": dict(
+                fn=pull_ms.pull_ms, source=ms_src,
+                replaces="src/repro/kernels/pull_ms.py:43"),
+            "pull_ms_packed": dict(
+                fn=pull_ms_packed.pull_ms_packed, source=ms_src,
+                replaces="src/repro/kernels/pull_ms_packed.py:37"),
+            "scatter_or": dict(
+                fn=scatter_or.scatter_or, source=ms_src,
+                replaces="src/repro/kernels/scatter_or.py:39"),
+            "pull_mma_ms_packed": dict(
+                fn=mma.pull_mma_ms_packed, source=ms_src,
+                replaces="src/repro/kernels/pull_mma_ms_packed.py:177"),
         }
+        # the multi-source plain versions, on the kernels' arguments
+        self.kernels["pull_ms"]["plain"] = lambda m, f, v2r, sigma=8: \
+            kref.pull_ms_ref(m, f.index_select(0, v2r))
+        self.kernels["pull_ms_packed"]["plain"] = lambda m, f, v2r, sigma=8: \
+            pull_ms_packed.pull_ms_packed_ref(m, f.index_select(0, v2r), sigma)
+        self.kernels["scatter_or"]["plain"] = scatter_or.scatter_or_ref
+        self.kernels["pull_mma_ms_packed"]["plain"] = \
+            lambda a, f, v2r, sigma=8, block=8: mma.pull_mma_ms_packed_ref(
+                a, f.index_select(0, v2r))
         for k in self.kernels.values():
             k["max_abs_err"] = 0
         self.bfs_rows: list[dict] = []
+        self.ms_rows: list[dict] = []
 
     # ------------------------------------------------------------ helpers --
     def sync(self):
         if self.dev.type == "cuda":
             self.torch.cuda.synchronize()
 
-    def time_ms(self, fn, iters: int = 20) -> float:
+    def time_ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
         """Mean device time of one call, over ``iters`` back-to-back calls."""
         torch = self.torch
-        for _ in range(3):
+        for _ in range(warmup):
             fn()
         self.sync()
         if self.dev.type != "cuda":
@@ -141,8 +204,12 @@ class Smoke:
             if g.dtype != w.dtype or g.shape != w.shape:
                 fail(f"{name} {what}: {g.dtype}{tuple(g.shape)} vs plain "
                      f"{w.dtype}{tuple(w.shape)}")
-            err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) \
-                if g.numel() else 0
+            err = 0
+            if not torch.equal(g, w):  # the int64 difference, 2**26 at a time
+                g, w, step = g.reshape(-1), w.reshape(-1), 1 << 26
+                err = max(int((g[i:i + step].to(torch.int64)
+                               - w[i:i + step].to(torch.int64)).abs().max())
+                          for i in range(0, g.numel(), step))
             k = self.kernels[name]
             k["max_abs_err"] = max(k["max_abs_err"], err)
             if err:
@@ -314,6 +381,416 @@ class Smoke:
         self.bfs_rows.append(row)
         log(f"{label} one dense level at depth {depth}: {row['stage_ms']}")
 
+    # ------------------------------------- phase 2b: multi-source pool --
+    def rand_words(self, rng, shape, empty=0.15):
+        """int32 bit-pattern words, all zero in ~15% of cases."""
+        np = self.np
+        if rng.random() < empty:
+            return self.t(np.zeros(shape, np.int32))
+        return self.t(rng.integers(0, 1 << 32, shape, dtype=np.uint64)
+                      .astype(np.uint32).view(np.int32))
+
+    def ms_kernel_pool(self, seed: int = 1):
+        np, torch, mma = self.np, self.torch, self.mma
+        rng = np.random.default_rng(seed)
+        shapes = SHAPES + PACKED_SHAPES
+        planes = self.msbfs.frontier_planes
+        for case in range(POOL_CASES):
+            n, sigma, tau = shapes[case % len(shapes)]
+            m = int(rng.integers(0, 3 * n + 1))
+            g = self.Graph(n=n, src=rng.integers(0, n, m),
+                           dst=rng.integers(0, n, m))
+            bd = self.blest.to_device(self.build_bvss(
+                g, self.BvssConfig(sigma=sigma, tau=tau)), device=self.dev)
+            what = f"ms pool case {case} (n={n}, sigma={sigma}, tau={tau})"
+            kappa = MS_KAPPAS[case % len(MS_KAPPAS)]
+            fv = rng.integers(0, 256 if case % 4 == 0 else 2,
+                              (bd.n_ext, kappa)).astype(np.uint8)
+            if rng.random() < 0.15:
+                fv[:] = 0  # an empty frontier
+            f = planes(bd, self.t(fv))
+            k = self.kernels["pull_ms"]
+            self.same("pull_ms", k["fn"](bd.masks, f, bd.v2r, sigma=sigma),
+                      k["plain"](bd.masks, f, bd.v2r), f"{what} kappa={kappa}")
+            kw = PACKED_KAPPAS[case % len(PACKED_KAPPAS)] // 32
+            fp = planes(bd, self.rand_words(rng, (bd.n_ext, kw)))
+            k = self.kernels["pull_ms_packed"]
+            marks = k["fn"](bd.masks, fp, bd.v2r, sigma=sigma)
+            self.same("pull_ms_packed", marks,
+                      k["plain"](bd.masks, fp, bd.v2r, sigma), what)
+            rows = bd.row_ids.reshape(-1)
+            dest = self.rand_words(rng, (bd.n_ext, kw), empty=0.3)
+            k = self.kernels["scatter_or"]
+            mk = marks.reshape(-1, kw)
+            self.same("scatter_or", k["fn"](dest, rows, mk),
+                      k["plain"](dest, rows, mk), what)
+            # all elements on one row (the REDG case), random marks
+            rows = torch.full_like(rows, int(rng.integers(bd.n_ext)))
+            mk = self.rand_words(rng, (rows.numel(), kw), empty=0)
+            self.same("scatter_or", k["fn"](dest, rows, mk),
+                      k["plain"](dest, rows, mk), f"{what}, one row")
+            block = (8, 16)[case % 2]
+            tiles = mma.prep_mma_tiles(bd, block=block)
+            k = self.kernels["pull_mma_ms_packed"]
+            out = k["fn"](tiles.a_planes, fp, tiles.v2r, sigma=sigma,
+                          block=block)
+            self.same("pull_mma_ms_packed", out,
+                      k["plain"](tiles.a_planes, fp, tiles.v2r), what)
+            self.same("pull_mma_ms_packed", out[: bd.num_vss_pad], marks,
+                      f"{what} against the gather pull")
+            a = self.t(rng.integers(-128, 128, tuple(tiles.a_planes.shape))
+                       .astype(np.int8))
+            self.same("pull_mma_ms_packed",
+                      k["fn"](a, fp, tiles.v2r, sigma=sigma, block=block),
+                      k["plain"](a, fp, tiles.v2r), f"{what}, int8 planes")
+        try:
+            mma.pull_mma_ms_packed(a[1:], fp, tiles.v2r[1:], sigma=sigma)
+        except ValueError as e:
+            if "pad-and-mask" not in str(e):
+                fail(f"pull_mma_ms_packed refused a ragged VSS count with "
+                     f"the wrong error: {e}")
+        else:
+            fail("pull_mma_ms_packed accepted a ragged VSS count")
+
+    # ------------------------------------------- phase 3b: multi-source --
+    def ms_row(self, label, layout, kappa, levels, dt, lane_edges):
+        row = {"graph": label, "layout": layout, "kappa": kappa,
+               "levels": int(levels), "ms": dt * 1e3,
+               "lane_edges_per_s": lane_edges / dt}
+        self.ms_rows.append(row)
+        log(f"{label} {layout} kappa={kappa}: {levels} levels, "
+            f"{dt * 1e3:.1f} ms, {lane_edges / dt:.3g} lane-edges/s")
+
+    def timed(self, fn):
+        self.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        self.sync()
+        return out, time.perf_counter() - t0
+
+    def lane_edges(self, g, per_vertex_lanes):
+        """Sum over lanes of the edges whose source the lane reached, from
+        the number of lanes that reached each vertex (original ids)."""
+        return int((per_vertex_lanes.astype(self.np.int64)
+                    * g.out_degree).sum())
+
+    def msbfs_checked(self, b, g, srcs, label, bfs_lanes):
+        """Blest.msbfs from ``srcs`` (original ids), timed; the lanes
+        ``bfs_lanes`` equal to Blest.bfs, the first two to the oracle too.
+        Returns the levels and the number of levels run."""
+        np = self.np
+        lv, dt = self.timed(lambda: b.msbfs(srcs))
+        reached = lv != self.blest.UNREACHED
+        levels = int(lv[reached].max()) + 1  # the last level finds nothing
+        self.ms_row(label, "byteplane", len(srcs), levels, dt,
+                    self.lane_edges(g, reached.sum(axis=0)))
+        for i in bfs_lanes:
+            if not np.array_equal(lv[i], b.bfs(int(srcs[i]))):
+                fail(f"{label}: msbfs lane {i} (source {srcs[i]}) differs "
+                     "from Blest.bfs")
+        for i in (0, 1):
+            if not np.array_equal(lv[i], self.ref_bfs.bfs_levels(
+                    g, int(srcs[i]))):
+                fail(f"{label}: msbfs lane {i} differs from the oracle")
+        return lv, levels
+
+    def closeness_from_levels(self, lv, n):
+        """cc over the lanes of ``lv`` with closeness's own formula."""
+        np = self.np
+        reached = lv != self.blest.UNREACHED
+        far = np.where(reached, lv, 0).sum(axis=0, dtype=np.int64)
+        reach = reached.sum(axis=0, dtype=np.int64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return {
+                "classic": np.where(far > 0, (n - 1) / far, 0.0),
+                "component": np.where(
+                    far > 0, (reach - 1) ** 2 / ((n - 1) * far), 0.0),
+            }, far, reach
+
+    def ms_path(self, b, g, label):
+        """Phase 3b; returns the bd-order sources of the two batches."""
+        np, ms = self.np, self.msbfs
+        srcs = self.sources(g, MS_SOURCES, seed=4)
+        lv, levels = self.msbfs_checked(b, g, srcs, label, range(len(srcs)))
+        want, _, _ = self.closeness_from_levels(lv, g.n)
+        bd_srcs = b.perm[srcs].astype(np.int32)
+        for bucketed in (False, True):
+            for norm in ("classic", "component"):
+                cc, dt = self.timed(lambda: b.closeness(
+                    kappa=MS_SOURCES, sources=bd_srcs, bucketed=bucketed,
+                    normalize=norm))
+                if not np.array_equal(cc, want[norm]):
+                    fail(f"{label}: closeness ({norm}, bucketed={bucketed}) "
+                         "differs from the lanes' closeness")
+                self.ms_row(label, "byteplane closeness " + (
+                    "bucketed" if bucketed else "fused") + f" {norm}",
+                    MS_SOURCES, levels, dt, self.lane_edges(
+                        g, (lv != self.blest.UNREACHED).sum(axis=0)))
+        # packed: gather == mma == four byteplane batches of 64
+        srcs = b.perm[self.sources(g, PACKED_SOURCES, seed=5)].astype(np.int32)
+        batches = [ms.msbfs_fused(b.bd, srcs[i:i + MS_SOURCES])
+                   for i in range(0, PACKED_SOURCES, MS_SOURCES)]
+        far = sum(st.far.to(self.torch.int64) for st in batches)
+        reach = sum(st.reach.to(self.torch.int64) for st in batches)
+        levels = max(st.ell for st in batches) - 1
+        out = {}
+        for kernel in ("gather", "mma"):
+            runner = self.msbfs_packed.PackedMsBfs(b.bd, kernel=kernel)
+            out[kernel], dt = self.timed(lambda: runner.run(srcs))
+            r = out[kernel][2][: g.n].cpu().numpy()[b.perm]
+            self.ms_row(label, f"packed {kernel}", PACKED_SOURCES, levels, dt,
+                        self.lane_edges(g, r))
+            if not (self.torch.equal(out[kernel][1].to(self.torch.int64),
+                                     far)
+                    and self.torch.equal(out[kernel][2].to(self.torch.int64),
+                                         reach)):
+                fail(f"{label}: PackedMsBfs({kernel}) far/reach differ from "
+                     "the byteplane batches")
+        if not all(self.torch.equal(x, y)
+                   for x, y in zip(out["gather"], out["mma"])):
+            fail(f"{label}: PackedMsBfs gather and mma differ")
+        return bd_srcs, srcs
+
+    # ------------------------ phase 3b: multi-source production shapes --
+    def chunked(self, name, args, n):
+        """The plain version of ``name`` over the whole arrays, in chunks of
+        CHUNK_VSS VSSs (its int32 counts over all VSSs would not fit)."""
+        torch = self.torch
+        plain = self.kernels[name]["plain"]
+        if name == "scatter_or":
+            dest, rows, marks = args
+            step = CHUNK_VSS * (rows.numel() // n)  # slots of CHUNK_VSS VSSs
+            out = dest
+            for i in range(0, rows.numel(), step):
+                out = plain(out, rows[i:i + step], marks[i:i + step])
+            return out
+        lead, f, v2r = args
+        out = None
+        for i in range(0, n, CHUNK_VSS):
+            part = plain(lead[i:i + CHUNK_VSS], f, v2r[i:i + CHUNK_VSS])
+            if out is None:
+                out = torch.empty((n, *part.shape[1:]), dtype=part.dtype,
+                                  device=part.device)
+            out[i:i + part.shape[0]] = part
+        return out
+
+    def production_ms_kernels(self, bd, bd_srcs, packed_srcs, counts):
+        """Equality, times and bounds of each multi-source kernel at the
+        shapes of ``bd``, on the state two levels from the sources."""
+        ms = self.msbfs
+        st = ms.msbfs_fused(bd, bd_srcs, max_levels=2)
+        runner = self.msbfs_packed.PackedMsBfs(bd, kernel="mma")
+        v1 = runner.run(packed_srcs, max_levels=1)[0]
+        v2 = runner.run(packed_srcs, max_levels=2)[0]
+        fp = self.msbfs.frontier_planes(bd, v2 & ~v1)
+        tiles = runner._mma_tiles
+        n_v, tau = bd.masks.shape
+        s1, sigma, kappa = st.f_planes.shape
+        kw = fp.shape[2]
+        marks = self.ops.pull_ms_packed(bd.masks, fp, bd.v2r, sigma=sigma)
+        rows = bd.row_ids.reshape(-1)
+        n_q = tiles.a_planes.shape[0]
+        # (args, bytes moved once, operations, their peak rate)
+        cells = {
+            "pull_ms": ((bd.masks, st.f_planes, bd.v2r),
+                        n_v * tau + s1 * sigma * kappa + 4 * n_v
+                        + n_v * tau * kappa,
+                        2 * n_v * tau * sigma * kappa, INT8_MMA_OPS_PER_S),
+            "pull_ms_packed": ((bd.masks, fp, bd.v2r),
+                               n_v * tau + 4 * s1 * sigma * kw + 4 * n_v
+                               + 4 * n_v * tau * kw,
+                               2 * n_v * tau * sigma * kw, ALU_OPS_PER_S),
+            "scatter_or": ((v2, rows, marks.reshape(-1, kw)),
+                           8 * rows.numel() + 4 * rows.numel() * kw
+                           + 2 * 4 * v2.numel(),
+                           rows.numel() * kw, ALU_OPS_PER_S),
+            "pull_mma_ms_packed": ((tiles.a_planes, fp, tiles.v2r),
+                                   n_q * tau * sigma + 4 * s1 * sigma * kw
+                                   + 4 * n_q + 4 * n_q * tau * kw,
+                                   2 * n_q * tau * sigma * kw * 32,
+                                   INT8_MMA_OPS_PER_S),
+        }
+        rows_out = []
+        for name, (args, nbytes, nops, peak) in cells.items():
+            k = self.kernels[name]
+            n = args[0].shape[0] if name != "scatter_or" else n_v
+            what = f"production shapes (N_v={n_v}, tau={tau}, " \
+                   f"kappa={kappa if name == 'pull_ms' else 32 * kw})"
+            self.same(name, k["fn"](*args), self.chunked(name, args, n), what)
+            ms_ = self.time_ms(lambda: k["fn"](*args))
+            plain_ms = self.time_ms(lambda: self.chunked(name, args, n),
+                                    iters=2, warmup=1)
+            lib_ms = None
+            if name in ("pull_ms", "pull_mma_ms_packed"):
+                lib_ms = self.bmm_ms(args[0] if name == "pull_mma_ms_packed"
+                                     else None, bd, args[1], args[2], name)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nops / peak * 1e3
+            rows_out.append({
+                "name": name, "route": "cuda", "source": k["source"],
+                "replaces": k["replaces"], "launches": counts[name],
+                "max_abs_err": k["max_abs_err"], "ms": ms_,
+                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": lib_ms,
+            })
+            log(f"{name}: {ms_:.4f} ms (plain {plain_ms:.3f}, library "
+                f"{lib_ms}, bound {max(t_bytes, t_ops):.4f} from {nbytes} "
+                f"bytes, {nops} operations) at {what}")
+        self.ms_level_cost(bd, st, runner, v2, fp)
+        return rows_out
+
+    def bmm_ms(self, a_planes, bd, f, v2r, name):
+        """Yardstick: torch.bmm of the fp16 0/1 operands, (tau, sigma) mask
+        planes times the gathered (sigma, kappa) frontier planes per VSS,
+        over all VSSs in chunks of CHUNK_VSS * 8 (one output buffer).  The
+        unpacking, the gather and the threshold are not timed: the product
+        is the one call that computes the counts."""
+        torch = self.torch
+        half = torch.float16
+        if a_planes is None:
+            a_planes = self.mma.unpack_mask_planes(bd.masks, bd.sigma)
+        n = a_planes.shape[0]
+        step = CHUNK_VSS * 8
+        a = a_planes.to(half)
+        tiles = f.index_select(0, v2r)
+        if name == "pull_mma_ms_packed":
+            b = self.words.unpack_words(tiles, half)
+        else:
+            b = tiles.to(half)
+        buf = torch.empty((min(step, n), a.shape[1], b.shape[2]), dtype=half,
+                          device=a.device)
+
+        def run():
+            for i in range(0, n, step):
+                j = min(n, i + step)
+                torch.bmm(a[i:j], b[i:j], out=buf[: j - i])
+        ms_ = self.time_ms(run, iters=3, warmup=1)
+        del a, b, buf, tiles
+        return ms_
+
+    def ms_level_cost(self, bd, st, runner, v, fp):
+        """Device time of each stage of one dense multi-source level at the
+        state two levels from the sources, in both layouts, and of the
+        whole level back to back and with its flag read."""
+        torch, ms, ops, words = self.torch, self.msbfs, self.ops, self.words
+        kappa = st.v_curr.shape[1]
+        rows = bd.row_ids.reshape(-1)
+        marks = ops.pull_ms(bd.masks, st.f_planes, bd.v2r, sigma=bd.sigma)
+        v_next = st.v_curr.clone().index_reduce_(
+            0, rows, marks.reshape(-1, kappa), "amax")
+
+        def stage2():
+            diff = v_next & (1 - st.v_curr)
+            new = diff.sum(dim=1, dtype=torch.int32)
+            return (ms.frontier_planes(bd, diff), st.far + st.ell * new,
+                    torch.where(diff == 1, st.ell, st.levels)
+                    if st.levels.numel() else None)
+
+        def level():
+            return ms._ms_level(bd, st, track_levels=False)
+
+        byte = {
+            "pull_ms": lambda: ops.pull_ms(bd.masks, st.f_planes, bd.v2r,
+                                           sigma=bd.sigma),
+            "index_reduce_amax": lambda: st.v_curr.clone().index_reduce_(
+                0, rows, marks.reshape(-1, kappa), "amax"),
+            "stage2": stage2,
+            "level": level,
+            "level_with_flag_read": lambda: bool(level().f_planes.any()),
+        }
+        self.ms_rows.append({
+            "graph": "level", "layout": "byteplane", "kappa": kappa,
+            "depth": 2, "stage_ms": {k: self.time_ms(f, iters=5, warmup=1)
+                                     for k, f in byte.items()}})
+        log(f"one dense byteplane MS level: {self.ms_rows[-1]['stage_ms']}")
+        tiles = runner._mma_tiles
+        pmarks = ops.pull_ms_packed(bd.masks, fp, bd.v2r, sigma=bd.sigma)
+        kw = fp.shape[2]
+        pv_next = ops.scatter_or(v, rows, pmarks.reshape(-1, kw))
+        far = torch.zeros(bd.n_ext, dtype=torch.int32, device=v.device)
+
+        def pstage2():
+            diff = pv_next & ~v
+            new = words.popcount32(diff).sum(dim=1, dtype=torch.int32)
+            return ms.frontier_planes(bd, diff), far + 3 * new
+
+        gather = self.msbfs_packed.PackedMsBfs(bd)
+
+        def plevel(r):
+            return r._level(v, fp, far, far, 3)
+
+        packed = {
+            "pull_ms_packed": lambda: ops.pull_ms_packed(
+                bd.masks, fp, bd.v2r, sigma=bd.sigma),
+            "pull_mma_ms_packed": lambda: ops.pull_mma_ms_packed(
+                tiles.a_planes, fp, tiles.v2r, sigma=bd.sigma),
+            "scatter_or": lambda: ops.scatter_or(v, rows,
+                                                 pmarks.reshape(-1, kw)),
+            "stage2_popcount": pstage2,
+            "level_gather": lambda: plevel(gather),
+            "level_gather_with_flag_read": lambda: bool(
+                plevel(gather)[1].any()),
+            "level_mma": lambda: plevel(runner),
+            "level_mma_with_flag_read": lambda: bool(plevel(runner)[1].any()),
+        }
+        self.ms_rows.append({
+            "graph": "level", "layout": "packed", "kappa": 32 * kw,
+            "depth": 2, "stage_ms": {k: self.time_ms(f, iters=5, warmup=1)
+                                     for k, f in packed.items()}})
+        log(f"one dense packed MS level: {self.ms_rows[-1]['stage_ms']}")
+
+    # -------------------------------------- phases 4 and 5: multi-source --
+    def ms_road(self, b, g, label):
+        np = self.np
+        srcs = np.concatenate([[0], self.sources(g, ROAD_SOURCES - 1,
+                                                 seed=6)])
+        lv, levels = self.msbfs_checked(b, g, srcs, label, (0, 1))
+        _, far, reach = self.closeness_from_levels(lv, g.n)
+        runner = self.msbfs_packed.PackedMsBfs(b.bd)
+        (_, pfar, preach), dt = self.timed(
+            lambda: runner.run(b.perm[srcs].astype(np.int32)))
+        preach = preach[: g.n].cpu().numpy()[b.perm]
+        self.ms_row(label, "packed gather", ROAD_SOURCES, levels, dt,
+                    self.lane_edges(g, preach))
+        if not (np.array_equal(pfar[: g.n].cpu().numpy()[b.perm], far)
+                and np.array_equal(preach, reach)):
+            fail(f"{label}: PackedMsBfs far/reach differ from Blest.msbfs")
+
+    def ms_family(self, b, g, label):
+        np, torch = self.np, self.torch
+        want = self.ref_bfs.closeness_centrality(g)
+        reach = np.zeros(g.n, np.int64)
+        far = np.zeros(g.n, np.int64)
+        for s in range(g.n):  # component closeness from the same levels
+            lv = self.ref_bfs.bfs_levels(g, s)
+            m = lv != self.blest.UNREACHED
+            far += np.where(m, lv, 0)
+            reach += m
+        with np.errstate(divide="ignore", invalid="ignore"):
+            comp = np.where(far > 0, (reach - 1) ** 2 / ((g.n - 1) * far), 0.)
+        for bucketed in (False, True):
+            for norm, ref in (("classic", want), ("component", comp)):
+                cc = b.closeness(kappa=64, bucketed=bucketed, normalize=norm)
+                if not np.allclose(cc, ref, rtol=1e-12, atol=0):
+                    fail(f"{label}: closeness ({norm}, bucketed={bucketed}) "
+                         "differs from the oracle")
+        srcs = self.sources(g, 8, seed=7)
+        if not np.array_equal(b.msbfs(srcs),
+                              self.ref_bfs.multi_source_levels(g, srcs)):
+            fail(f"{label}: Blest.msbfs differs from the oracle")
+        srcs = b.perm[self.sources(g, 32, seed=8)].astype(np.int32)
+        byte = self.msbfs.msbfs_fused(b.bd, srcs)
+        for kernel in ("gather", "mma"):
+            v, far_, reach_ = self.msbfs_packed.PackedMsBfs(
+                b.bd, kernel=kernel).run(srcs)
+            if not (torch.equal(self.msbfs_packed.unpack_levels_check(v, 32),
+                                byte.v_curr)
+                    and torch.equal(far_, byte.far)
+                    and torch.equal(reach_, byte.reach)):
+                fail(f"{label}: PackedMsBfs({kernel}) differs from the "
+                     "byteplane MS-BFS")
+
     def sources(self, g, k, seed):
         np = self.np
         cand = np.nonzero(g.out_degree > 0)[0]
@@ -334,6 +811,7 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
 
     log("phase 2: kernels against their plain versions over the shape pool")
     smoke.kernel_pool()
+    smoke.ms_kernel_pool()
 
     log(f"phase 3: main path, kron scale {kron_scale}")
     t0 = time.perf_counter()
@@ -348,12 +826,24 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
     smoke.sync()
     counts = ops.launch_counts()
     log(f"main path launches: {counts}")
-    missing = [k for k, c in counts.items() if c == 0]
+    missing = [k for k in SS_KERNELS if counts[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     smoke.time_bfs(b, g, sources, f"kron-{kron_scale}")
     smoke.level_cost(b, sources[0], f"kron-{kron_scale}", depth=2)
     kernel_rows = smoke.production_kernels(b.bd, counts)
+
+    log(f"phase 3b: multi-source path, kron scale {kron_scale}")
+    ops.reset_launch_counts()
+    bd_srcs, packed_srcs = smoke.ms_path(b, g, f"kron-{kron_scale}")
+    smoke.sync()
+    ms_counts = ops.launch_counts()
+    log(f"multi-source path launches: {ms_counts}")
+    missing = [k for k in MS_KERNELS if ms_counts[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the multi-source path: {missing}")
+    kernel_rows += smoke.production_ms_kernels(b.bd, bd_srcs, packed_srcs,
+                                               ms_counts)
     del b, g
 
     log(f"phase 4: road scale {road_scale}")
@@ -366,6 +856,7 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
                     f"road-{road_scale}")
     smoke.time_bfs(b, g, road_sources, f"road-{road_scale}")
     smoke.level_cost(b, 0, f"road-{road_scale}", depth=3)
+    smoke.ms_road(b, g, f"road-{road_scale}")
     del b, g
 
     log("phase 5: every family at scale 10")
@@ -374,6 +865,7 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
         b = Blest.preprocess(g, device=smoke.dev)
         smoke.check_bfs(b, g, smoke.sources(g, 2, seed=3), COMBOS,
                         f"{family}-10")
+        smoke.ms_family(b, g, f"{family}-10")
         log(f"{family}-10 ok ({b.stats.algorithm}, lazy={b.stats.lazy})")
     smoke.sync()
     return kernel_rows
@@ -409,6 +901,7 @@ def main(argv=None) -> None:
     print(smi)
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"bfs": smoke.bfs_rows}))
+    print(json.dumps({"msbfs": smoke.ms_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

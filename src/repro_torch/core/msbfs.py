@@ -1,0 +1,159 @@
+"""Multi-source BFS (paper Alg. 5) — kappa concurrent BFSs per launch.
+
+State layout, as in ``repro.core.msbfs``: visited/frontier are
+**byte-planes** ``(n_ext, kappa) uint8`` (one byte per vertex and BFS), so a
+max-scatter is the OR that combines the marks of duplicate rows.  The pull
+is the (popc, AND) product of :func:`repro_torch.kernels.ops.pull_ms`: per
+VSS, (tau x sigma) unpacked masks @ (sigma x kappa) frontier bit-planes.
+
+The scatter of marks into the visited bytes stays a torch op, as it was an
+XLA op outside any kernel in the reference: ``index_reduce_(..., "amax")``
+over the 1-D int64 ``bd.row_ids``.  Slots with a zero mask (whose rows the
+port spreads over ``n_ext``) mark nothing on any lane, so the spread is
+exact here too.
+
+activeSets / dirtySets (paper §6.1): in the fused driver both are implicit —
+inactive slice sets contribute all-zero frontier tiles.  The bucketed driver
+exposes ``activeSets`` as the VSS queue.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.blest import (UNREACHED, BvssDevice, bucket_size,
+                                    expand_active_sets)
+from repro_torch.kernels import ops
+
+
+class MsBfsState(NamedTuple):
+    v_curr: torch.Tensor    # (n_ext, kappa) uint8 — visited bytes
+    f_planes: torch.Tensor  # (num_sets_ext, sigma, kappa) uint8 — frontier
+    far: torch.Tensor       # (n_ext,) int32 — per-batch closeness accumulator
+    reach: torch.Tensor     # (n_ext,) int32 — per-batch visit counts
+    # int32 per kappa-batch is safe (<= kappa * diameter); the closeness
+    # driver accumulates across batches in int64 on the host.
+    levels: torch.Tensor    # (n_ext, kappa) int32, or (0, 0) if not tracked
+    ell: int                # next level to assign
+
+
+def frontier_planes(bd: BvssDevice, v_or_diff: torch.Tensor) -> torch.Tensor:
+    """(n_ext, width) visited/diff rows -> (num_sets_ext, sigma, width)
+    frontier tiles with the all-zero sentinel slice set appended
+    (dtype-generic; shared with core/msbfs_packed)."""
+    f = v_or_diff[: bd.n_pad].reshape(bd.num_sets, bd.sigma, -1)
+    return torch.cat([f, torch.zeros_like(f[:1])])
+
+
+def init_ms_state(bd: BvssDevice, sources, *,
+                  track_levels: bool = False) -> MsBfsState:
+    """``sources`` (kappa,) int: vertex ids in bd order, -1 for padding."""
+    sources = torch.as_tensor(sources, device=bd.device).long()
+    kappa = sources.shape[0]
+    valid = sources >= 0  # padding sources marked -1
+    v = torch.zeros((bd.n_ext, kappa), dtype=torch.uint8, device=bd.device)
+    # each (row, lane) pair is distinct: one lane per column
+    v[torch.where(valid, sources, 0),
+      torch.arange(kappa, device=bd.device)] = valid.to(torch.uint8)
+    if track_levels:
+        levels = torch.full((bd.n_ext, kappa), UNREACHED, dtype=torch.int32,
+                            device=bd.device)
+        levels.masked_fill_(v == 1, 0)
+    else:
+        levels = torch.zeros((0, 0), dtype=torch.int32, device=bd.device)
+    return MsBfsState(
+        v_curr=v,
+        f_planes=frontier_planes(bd, v),
+        far=torch.zeros(bd.n_ext, dtype=torch.int32, device=bd.device),
+        reach=v.sum(dim=1, dtype=torch.int32),
+        levels=levels,
+        ell=1,
+    )
+
+
+def _ms_step(bd: BvssDevice, state: MsBfsState, masks, rows, v2r, *,
+             track_levels: bool) -> MsBfsState:
+    """One level over the VSSs given by (masks, rows, v2r)."""
+    kappa = state.v_curr.shape[1]
+    # Stage 1 — lazy marking via the pull
+    marks = ops.pull_ms(masks, state.f_planes, v2r, sigma=bd.sigma)
+    v_next = state.v_curr.clone().index_reduce_(
+        0, rows.reshape(-1), marks.reshape(-1, kappa), "amax")
+    # Stage 2 — frontier finalization (dense)
+    diff = v_next & (1 - state.v_curr)
+    new_per_vertex = diff.sum(dim=1, dtype=torch.int32)
+    levels = state.levels
+    if track_levels:
+        levels = torch.where(diff == 1, state.ell, levels)
+    return MsBfsState(v_next, frontier_planes(bd, diff),
+                      state.far + state.ell * new_per_vertex,
+                      state.reach + new_per_vertex, levels, state.ell + 1)
+
+
+def _ms_level(bd: BvssDevice, state: MsBfsState, *,
+              track_levels: bool) -> MsBfsState:
+    """One dense level over all VSSs."""
+    return _ms_step(bd, state, bd.masks, bd.row_ids, bd.v2r,
+                    track_levels=track_levels)
+
+
+def msbfs_fused(
+    bd: BvssDevice,
+    sources,
+    *,
+    track_levels: bool = False,
+    max_levels: int | None = None,
+) -> MsBfsState:
+    """Run kappa=len(sources) concurrent BFSs to completion.
+
+    The reference's ``lax.while_loop`` is a host loop here that tests its
+    condition before every level (an all-padding batch runs none), with one
+    flag read per level."""
+    max_levels = bd.n_ext if max_levels is None else max_levels
+    state = init_ms_state(bd, sources, track_levels=track_levels)
+    while state.ell <= max_levels and bool(state.f_planes.any()):
+        state = _ms_level(bd, state, track_levels=track_levels)
+    return state
+
+
+@dataclasses.dataclass
+class BucketedMsBfs:
+    """Host-driven MS-BFS with the activeSets queue: each level pulls only
+    the VSSs of slice sets active in at least one BFS, padded to a
+    power-of-two bucket with a padding VSS."""
+
+    bd: BvssDevice
+    track_levels: bool = False
+
+    def __call__(self, sources, max_levels: int | None = None) -> MsBfsState:
+        bd = self.bd
+        state = init_ms_state(bd, sources, track_levels=self.track_levels)
+        max_levels = bd.n_ext if max_levels is None else max_levels
+        while state.ell <= max_levels:
+            # activeSets: slice sets active in >= 1 BFS (paper Alg. 5 queue)
+            active = state.f_planes[: bd.num_sets].flatten(1).any(dim=1)
+            qids = expand_active_sets(bd.real_ptrs, active.cpu().numpy())
+            if qids.size == 0:
+                break
+            padded = np.full(bucket_size(qids.size), bd.num_vss, np.int32)
+            padded[: qids.size] = qids
+            q = torch.from_numpy(padded).to(bd.device)
+            state = _ms_step(bd, state, bd.masks.index_select(0, q),
+                             bd.row_ids.index_select(0, q),
+                             bd.v2r.index_select(0, q),
+                             track_levels=self.track_levels)
+        return state
+
+
+def get_vi(u, rho: int, sigma: int = 8):
+    """Paper §6.1 bijective re-indexing getVI(u, rho) = (u mod sigma)*rho +
+    floor(u/sigma).  The byte-plane rows already keep sigma consecutive
+    vertices' lanes contiguous; kept for fidelity and tests."""
+    return (u % sigma) * rho + u // sigma
+
+
+def get_vi_inverse(idx, rho: int, sigma: int = 8):
+    return (idx % rho) * sigma + idx // rho

@@ -7,9 +7,10 @@ Preprocessing (paper §7.2, Table 7), on the host as in ``repro``:
   4. dispatch update mechanics on U_div (lazy iff U_div > 25,000),
   5. probe whether Eq.(6) switching pays off (3 random-source runs).
 
-Runtime: single-source BFS (fused or bucketed), on the CUDA device unless
-``preprocess`` was given ``device="cpu"``.  Results are reported in the
-*original* vertex ids (the permutation is inverted on exit).
+Runtime: single-source BFS (fused or bucketed), multi-source BFS,
+closeness, on the CUDA device unless ``preprocess`` was given
+``device="cpu"``.  Results are reported in the *original* vertex ids (the
+permutation is inverted on exit).
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import time
 
 import numpy as np
 
-from repro_torch.core import blest, reorder as reorder_mod, switching
+from repro_torch.core import blest, closeness as closeness_mod, msbfs
+from repro_torch.core import reorder as reorder_mod, switching
 from repro_torch.core.bvss import Bvss, BvssConfig, build_bvss
 from repro_torch.core.graph import Graph
 
@@ -38,7 +40,7 @@ class PreprocessStats:
 
 @dataclasses.dataclass
 class Blest:
-    """One preprocessed graph, ready for single-source BFS."""
+    """One preprocessed graph, ready for (multi-source) BFS / closeness."""
 
     graph: Graph
     bvss: Bvss
@@ -115,3 +117,28 @@ class Blest:
         else:
             raise ValueError(mode)
         return lv.cpu().numpy()[self.perm]
+
+    def msbfs(self, sources: np.ndarray, *, track_levels: bool = True):
+        """(len(sources), n) level matrix in original ids; with
+        ``track_levels=False`` the final :class:`msbfs.MsBfsState`.
+
+        ``sources`` are original vertex ids in [0, n).  (``repro`` maps a
+        negative id through the permutation to another vertex; the port
+        refuses it.)"""
+        sources = np.asarray(sources)
+        if sources.size and not (0 <= sources.min() <= sources.max()
+                                 < self.graph.n):
+            raise ValueError(f"sources must be vertex ids in [0, "
+                             f"{self.graph.n}), got {sources.min()}.."
+                             f"{sources.max()}")
+        srcs = self.perm[sources].astype(np.int32)
+        st = msbfs.msbfs_fused(self.bd, srcs, track_levels=track_levels)
+        if not track_levels:
+            return st
+        return st.levels.cpu().numpy()[: self.graph.n].T[:, self.perm]
+
+    def closeness(self, kappa: int = 256, **kw) -> np.ndarray:
+        """Closeness of every vertex in original ids; ``kw`` go to
+        :func:`closeness_mod.closeness` (``sources`` in bd ids)."""
+        cc = closeness_mod.closeness(self.bd, kappa=kappa, **kw)
+        return cc[self.perm]

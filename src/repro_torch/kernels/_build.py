@@ -1,4 +1,5 @@
-"""Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
+"""Build the CUDA sources under ``csrc/`` with nvcc, load them with ctypes and
+launch their entry points on torch's current stream.
 
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch/lib<name>-<hash>.so`` at
 the root of the checkout, compiled for ``sm_90a`` with a plain C interface.
@@ -17,6 +18,8 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -32,6 +35,15 @@ SIGNATURES = {
         "blest_pull_ss_packed": ([_P, _P, _P, _I64, _I64, _P], _INT),
         "blest_frontier_sweep": (
             [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _P], _INT),
+        "blest_error_string": ([_INT], ctypes.c_char_p),
+    },
+    "blest_ms": {
+        "blest_pull_ms": ([_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P], _INT),
+        "blest_pull_ms_packed": (
+            [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P], _INT),
+        "blest_pull_mma_ms_packed": (
+            [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P], _INT),
+        "blest_scatter_or": ([_P, _P, _P, _I64, _INT, _P], _INT),
         "blest_error_string": ([_INT], ctypes.c_char_p),
     },
 }
@@ -100,3 +112,13 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err:
         msg = lib.blest_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch(name: str, fn: str, device: torch.device, *args) -> None:
+    """Calls ``fn`` of ``lib<name>`` with ``args`` and torch's current stream
+    on ``device``; raises on a refused launch."""
+    lib = library(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    check(lib, err, fn)

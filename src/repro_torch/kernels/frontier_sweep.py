@@ -41,14 +41,11 @@ def frontier_sweep(v_curr: torch.Tensor, v_next: torch.Tensor,
     f_words = torch.empty(num_sets, dtype=torch.uint8, device=v_curr.device)
     active = torch.empty_like(f_words)
     if num_sets:
-        lib = _build.library("blest_ss")
-        with torch.cuda.device(v_curr.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.blest_frontier_sweep(
-                v_curr.data_ptr(), v_next.data_ptr(), level.data_ptr(),
-                v_out.data_ptr(), level_out.data_ptr(), f_words.data_ptr(),
-                active.data_ptr(), num_sets, sigma, int(ell), stream)
-        _build.check(lib, err, "frontier_sweep")
+        _build.launch("blest_ss", "blest_frontier_sweep", v_curr.device,
+                      v_curr.data_ptr(), v_next.data_ptr(), level.data_ptr(),
+                      v_out.data_ptr(), level_out.data_ptr(),
+                      f_words.data_ptr(), active.data_ptr(), num_sets, sigma,
+                      int(ell))
         frontier_sweep.launches += 1
     return v_out, level_out, f_words, active
 

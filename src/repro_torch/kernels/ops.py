@@ -1,4 +1,4 @@
-"""Device dispatch for the single-source kernels.
+"""Device dispatch for the kernels.
 
 A CUDA tensor goes through the hand-written kernel, a CPU tensor through its
 plain PyTorch version; nothing else decides, and a kernel that fails raises
@@ -10,10 +10,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import frontier_sweep as _sweep
+from repro_torch.kernels import pull_mma_ms_packed as _mma
+from repro_torch.kernels import pull_ms as _pull_ms
+from repro_torch.kernels import pull_ms_packed as _pull_ms_packed
 from repro_torch.kernels import pull_ss as _pull_ss
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import scatter_or as _scatter_or
 
-KERNELS = (_pull_ss.pull_ss, _pull_ss.pull_ss_packed, _sweep.frontier_sweep)
+KERNELS = (_pull_ss.pull_ss, _pull_ss.pull_ss_packed, _sweep.frontier_sweep,
+           _pull_ms.pull_ms, _pull_ms_packed.pull_ms_packed,
+           _scatter_or.scatter_or, _mma.pull_mma_ms_packed)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -39,6 +45,36 @@ def frontier_sweep(v_curr, v_next, level, ell: int, *, sigma: int = 8):
     if _on_cpu(v_curr):
         return kref.frontier_sweep_ref(v_curr, v_next, level, ell, sigma=sigma)
     return _sweep.frontier_sweep(v_curr, v_next, level, ell, sigma=sigma)
+
+
+def pull_ms(masks, f_planes, v2r, *, sigma: int = 8):
+    """Byteplane MS pull; f_planes: (num_sets, sigma, kappa) bit-planes."""
+    if _on_cpu(masks):
+        return kref.pull_ms_ref(masks, f_planes.index_select(0, v2r))
+    return _pull_ms.pull_ms(masks, f_planes, v2r, sigma=sigma)
+
+
+def pull_ms_packed(masks, f_packed, v2r, *, sigma: int = 8):
+    if _on_cpu(masks):
+        return _pull_ms_packed.pull_ms_packed_ref(
+            masks, f_packed.index_select(0, v2r), sigma=sigma)
+    return _pull_ms_packed.pull_ms_packed(masks, f_packed, v2r, sigma=sigma)
+
+
+def scatter_or(dest, rows, marks):
+    if _on_cpu(dest):
+        return _scatter_or.scatter_or_ref(dest, rows, marks)
+    return _scatter_or.scatter_or(dest, rows, marks)
+
+
+def pull_mma_ms_packed(a_planes, f_packed, v2r, *, sigma: int = 8,
+                       block: int = _mma.MMA_VSS_BLOCK):
+    _mma.check_block(a_planes.shape[0], block)
+    if _on_cpu(a_planes):
+        return _mma.pull_mma_ms_packed_ref(a_planes,
+                                           f_packed.index_select(0, v2r))
+    return _mma.pull_mma_ms_packed(a_planes, f_packed, v2r, sigma=sigma,
+                                   block=block)
 
 
 def launch_counts() -> dict[str, int]:

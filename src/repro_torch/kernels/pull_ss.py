@@ -52,12 +52,9 @@ def pull_ss(masks: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
     n_v, tau = masks.shape
     marks = torch.empty_like(masks)
     if marks.numel():
-        lib = _build.library("blest_ss")
-        with torch.cuda.device(masks.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.blest_pull_ss(masks.data_ptr(), alphas.data_ptr(),
-                                    marks.data_ptr(), n_v, tau, stream)
-        _build.check(lib, err, "pull_ss")
+        _build.launch("blest_ss", "blest_pull_ss", masks.device,
+                      masks.data_ptr(), alphas.data_ptr(), marks.data_ptr(),
+                      n_v, tau)
         pull_ss.launches += 1
     return marks
 
@@ -76,13 +73,9 @@ def pull_ss_packed(masks_packed: torch.Tensor,
     n_v, words = masks_packed.shape
     marks = torch.empty_like(masks_packed)
     if marks.numel():
-        lib = _build.library("blest_ss")
-        with torch.cuda.device(masks_packed.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.blest_pull_ss_packed(
-                masks_packed.data_ptr(), alphas.data_ptr(), marks.data_ptr(),
-                n_v, words, stream)
-        _build.check(lib, err, "pull_ss_packed")
+        _build.launch("blest_ss", "blest_pull_ss_packed", masks_packed.device,
+                      masks_packed.data_ptr(), alphas.data_ptr(),
+                      marks.data_ptr(), n_v, words)
         pull_ss_packed.launches += 1
     return marks
 

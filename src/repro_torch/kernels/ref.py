@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the single-source kernels.
+"""Plain PyTorch versions of the single-source kernels and of the byteplane
+multi-source pull.
 
 Each function computes what its CUDA kernel computes and what
 ``repro.kernels.ref`` computes, bit for bit.  They run on any device: the
@@ -43,6 +44,28 @@ def pull_ss_packed_ref(masks_packed: torch.Tensor,
     # per-byte nonzero: high bit of ((t & 0x7f..) + 0x7f..) | t
     nz = ((t & _LOW7) + _LOW7) | t
     return ((nz >> 7) & _BYTE_LSB).to(torch.int32)
+
+
+def pull_ms_ref(masks: torch.Tensor, f_tiles: torch.Tensor) -> torch.Tensor:
+    """Multi-source pull: the (popc, AND) product of paper Alg. 5.
+
+    masks:   (N_q, tau) uint8 — sigma-bit masks of queued VSSs
+    f_tiles: (N_q, sigma, kappa) uint8 — frontier bit-planes of each queued
+             VSS's parent slice set (pre-gathered)
+    returns marks (N_q, tau, kappa) uint8 in {0,1}: the int32 count
+    ``einsum("vts,vsk->vtk", bits, f.int8) > 0``, with f taken as signed
+    int8 as the reference does, so any bytes (not only 0/1) give its marks.
+    The sum runs as sigma broadcast products, which every device supports.
+    """
+    n_q, sigma, kappa = f_tiles.shape
+    shifts = torch.arange(sigma, dtype=torch.uint8, device=masks.device)
+    bits = ((masks[:, :, None] >> shifts) & 1).to(torch.int32)
+    f = f_tiles.to(torch.int8).to(torch.int32)
+    prod = torch.zeros((n_q, masks.shape[1], kappa), dtype=torch.int32,
+                       device=masks.device)
+    for b in range(sigma):
+        prod += bits[:, :, b, None] * f[:, None, b, :]
+    return (prod > 0).to(torch.uint8)
 
 
 def frontier_sweep_ref(v_curr: torch.Tensor, v_next: torch.Tensor,

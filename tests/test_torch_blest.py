@@ -11,6 +11,8 @@ loud refusal of packed words with tau % 4 != 0.
 """
 from __future__ import annotations
 
+import ast
+import pathlib
 import subprocess
 import sys
 
@@ -128,14 +130,36 @@ def test_bucketed_trace_records_levels():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    code = ("import sys, repro_torch, repro_torch.core.pipeline, "
-            "repro_torch.kernels.ops, repro_torch.data.graphs\n"
+    """Every module of repro_torch, found by walking the package."""
+    code = ("import importlib, pkgutil, sys, repro_torch\n"
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "repro_torch.__path__, 'repro_torch.')]\n"
+            "for m in mods:\n"
+            "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'repro.')) or m == 'repro']\n"
-            "print(bad)\n")
+            "print(len(mods), bad)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=120)
-    assert out.stdout.strip() == "[]", out.stdout
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert bad == "[]", out.stdout
+    assert int(count) >= 20  # the walk found the package's modules
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    """The import statements of chip_smoke.py, read with ast (the script
+    imports the port lazily, inside functions)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, "chip_smoke.py uses relative imports"
+            names.append(node.module)
+    roots = {name.split(".")[0] for name in names}
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
+    assert "repro_torch" in roots
 
 
 def test_preprocess_without_device_needs_cuda(monkeypatch):

@@ -165,8 +165,9 @@ def test_cpu_tensors_never_launch_a_kernel():
     ops.pull_ss_packed(ops.pack_masks(_t(masks)), alphas)
     v_curr, v_next, level, ell = _sweep_inputs(rng, sigma)
     ops.frontier_sweep(_t(v_curr), _t(v_next), _t(level), ell, sigma=sigma)
-    assert ops.launch_counts() == {
-        "pull_ss": 0, "pull_ss_packed": 0, "frontier_sweep": 0}
+    counts = ops.launch_counts()
+    assert {"pull_ss", "pull_ss_packed", "frontier_sweep"} <= set(counts)
+    assert set(counts.values()) == {0}
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():
