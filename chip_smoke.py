@@ -14,7 +14,10 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    tau in {4,128} for the packed layouts; kappa in {8,32,48,3} for the
    byteplane pull and {32,64} for the packed kernels, all-duplicate rows for
    the scatter, random int8 planes (negative weights) for the MMA pull, and
-   a ragged VSS count that the MMA pull must refuse.
+   a ragged VSS count that the MMA pull must refuse.  The serve kernels
+   over the same pool: the fused dense levels with duplicate and
+   all-on-one rows (the MMA form also on random int8 planes), and the
+   queued pull over empty, full and random buckets of VSS ids.
 3. The main path at full size: kron (RMAT) scale 22, edge factor 16,
    through ``Blest.preprocess(g, reorder="natural", probe_switching=True)``
    and ``Blest.bfs`` from 4 seeded sources under all 8 driver combinations
@@ -45,6 +48,22 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    ``ref_bfs.closeness_centrality`` (rtol 1e-12); ``Blest.msbfs`` against
    ``ref_bfs.multi_source_levels``; ``PackedMsBfs`` gather == mma ==
    byteplane at kappa = 32.
+6. The serve engine (``serve.bfs_engine.BfsEngine``).  Each ticket's
+   expected values come first, from ``Blest.msbfs`` over the stream's
+   sources; then the launch counts are zeroed and these engines run:
+   (a) kron-22, kappa = 256, ``layout="packed", switching="on"``, 512
+   tickets (128 sources, each as bfs, closeness, distance and reach) on
+   256 lanes, so lanes are refilled mid-flight, with dense and queued
+   levels; (b) the same stream with ``layout="mma", switching="off"``;
+   (c) with ``layout="auto", switching="auto"`` (the probe's verdict is
+   logged); (d) road-20, kappa = 32, 64 tickets, switching on, over 2,000
+   ticks; (e) every family at scale 10 under each layout and switching
+   mode.  Every ticket of (a)-(d) must equal its expected values, those
+   from the oracle's sources the oracle too, and every ticket of (e) the
+   oracle.  Every serve kernel and ``pull_ms`` / ``scatter_or`` must have
+   launched.  Then kernels 8-10 at kron-22's shapes: equality with their
+   plain versions, times, bounds, and the unfused dense levels they
+   replace.
 
 Prints, before the last line: the card's name and power limit (as
 nvidia-smi gives them), one JSON line ``{"kernels": [...]}`` (launches on the
@@ -52,18 +71,24 @@ main path, ms per launch, plain version's ms, the bound and what sets it,
 the library call's ms), one JSON line ``{"bfs": [...]}`` (ms, edges/s and
 depth per BFS; per-stage ms of one dense level) and one JSON line
 ``{"msbfs": [...]}`` (per multi-source run: graph, layout, kappa, levels,
-ms, lane-edges/s; per-stage ms of one dense multi-source level).  The last
-line is ``{"ok": true, "device": {...}}``.
+ms, lane-edges/s; per-stage ms of one dense multi-source level) and one
+JSON line ``{"serve": [...]}`` (per engine: graph, layout, switching,
+kappa, tickets, build and wall seconds, tickets/s, lane-edges/s, dense and
+queued levels, ms per tick, p50 and p99 ticket latency).  The last line is
+``{"ok": true, "device": {...}}``.
 
 Edges/s is the number of directed edges (u, v) of the graph whose source u
 was reached, over the wall time of one ``Blest.bfs`` call (which includes
 copying the levels to the host and mapping them to original ids).
 Lane-edges/s sums that count over the lanes of a multi-source run, over the
-wall time of the call.
+wall time of the call; for the serve engine, over the tickets of a stream
+(a distance lane counts the edges of the vertices it had reached when its
+target lit up), over the wall time from the first submit to the drain.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -96,6 +121,11 @@ ROAD_SOURCES = 32
 CHUNK_VSS = 16384            # plain versions at full size run in chunks
 SS_KERNELS = ("pull_ss", "pull_ss_packed", "frontier_sweep")
 MS_KERNELS = ("pull_ms", "pull_ms_packed", "scatter_or", "pull_mma_ms_packed")
+SERVE_PATH_KERNELS = ("pull_ms", "scatter_or", "pull_scatter_ms_packed",
+                      "pull_ms_packed_queued", "pull_scatter_mma_ms_packed")
+SERVE_KINDS = ("bfs", "closeness", "distance", "reach")
+KRON_SERVE_SOURCES = 128     # x 4 kinds = 512 tickets on 256 lanes
+ROAD_SERVE_SOURCES = 16      # x 4 kinds = 64 tickets on 32 lanes
 
 
 def fail(msg: str) -> None:
@@ -123,6 +153,9 @@ class Smoke:
                                          pull_ms_packed, pull_ss,
                                          ref as kref, scatter_or, words)
         from repro_torch.kernels import pull_mma_ms_packed as mma
+        from repro_torch.kernels import pull_ms_packed_queued as queued
+        from repro_torch.kernels import pull_scatter_ms_packed as fused
+        from repro_torch.serve import bfs_engine, workloads
 
         self.np, self.torch, self.dev = np, torch, dev
         self.blest, self.ref_bfs, self.Blest = blest, ref_bfs, Blest
@@ -130,8 +163,10 @@ class Smoke:
         self.BvssConfig, self.build_bvss, self.Graph = (BvssConfig, build_bvss,
                                                         Graph)
         self.graphs, self.ops, self.words = graphs, ops, words
+        self.bfs_engine, self.workloads = bfs_engine, workloads
         csrc = "src/repro_torch/kernels/csrc/blest_ss.cu"
         ms_src = "src/repro_torch/kernels/csrc/blest_ms.cu"
+        serve_src = "src/repro_torch/kernels/csrc/blest_serve.cu"
         self.kernels = {
             "pull_ss": dict(
                 fn=pull_ss.pull_ss, plain=kref.pull_ss_ref, source=csrc,
@@ -155,6 +190,16 @@ class Smoke:
             "pull_mma_ms_packed": dict(
                 fn=mma.pull_mma_ms_packed, source=ms_src,
                 replaces="src/repro/kernels/pull_mma_ms_packed.py:177"),
+            "pull_scatter_ms_packed": dict(
+                fn=fused.pull_scatter_ms_packed, source=serve_src,
+                replaces="src/repro/kernels/pull_scatter_ms_packed.py:62"),
+            "pull_ms_packed_queued": dict(
+                fn=queued.pull_ms_packed_queued, source=serve_src,
+                plain=queued.pull_ms_packed_queued_ref,
+                replaces="src/repro/kernels/pull_ms_packed_queued.py:50"),
+            "pull_scatter_mma_ms_packed": dict(
+                fn=mma.pull_scatter_mma_ms_packed, source=serve_src,
+                replaces="src/repro/kernels/pull_mma_ms_packed.py:247"),
         }
         # the multi-source plain versions, on the kernels' arguments
         self.kernels["pull_ms"]["plain"] = lambda m, f, v2r, sigma=8: \
@@ -165,10 +210,21 @@ class Smoke:
         self.kernels["pull_mma_ms_packed"]["plain"] = \
             lambda a, f, v2r, sigma=8, block=8: mma.pull_mma_ms_packed_ref(
                 a, f.index_select(0, v2r))
+        self.kernels["pull_scatter_ms_packed"]["plain"] = \
+            lambda v, m, f, v2r, rows, sigma=8: \
+            fused.pull_scatter_ms_packed_ref(v, m, f.index_select(0, v2r),
+                                             rows, sigma)
+        self.kernels["pull_scatter_mma_ms_packed"]["plain"] = \
+            lambda v, a, f, v2r, rows, sigma=8: \
+            mma.pull_scatter_mma_ms_packed_ref(v, a, f.index_select(0, v2r),
+                                               rows)
         for k in self.kernels.values():
             k["max_abs_err"] = 0
         self.bfs_rows: list[dict] = []
         self.ms_rows: list[dict] = []
+        self.serve_rows: list[dict] = []
+        self.oracle: dict = {}  # (graph label, source) -> oracle levels
+        self.graphs_n: dict = {}  # graph label -> n
 
     # ------------------------------------------------------------ helpers --
     def sync(self):
@@ -307,6 +363,7 @@ class Smoke:
     def check_bfs(self, b, g, sources, combos, label):
         for s in sources:
             want = self.ref_bfs.bfs_levels(g, int(s))
+            self.oracle[label, int(s)] = want
             for mode, lazy, packed in combos:
                 got = b.bfs(int(s), mode=mode, lazy=lazy, packed=packed)
                 if not (got == want).all():
@@ -452,6 +509,64 @@ class Smoke:
         else:
             fail("pull_mma_ms_packed accepted a ragged VSS count")
 
+    # --------------------------------- phase 2c: serve kernels' pool --
+    def serve_kernel_pool(self, seed: int = 2):
+        """The fused dense levels (selective-OR and MMA form) and the
+        queued pull over the pool: duplicate rows, all slots on one row,
+        random int8 planes for the MMA form, empty and full qids buckets;
+        each exactly equal to its plain version."""
+        np, torch, mma = self.np, self.torch, self.mma
+        rng = np.random.default_rng(seed)
+        shapes = SHAPES + PACKED_SHAPES
+        planes = self.msbfs.frontier_planes
+        for case in range(POOL_CASES):
+            n, sigma, tau = shapes[case % len(shapes)]
+            m = int(rng.integers(0, 3 * n + 1))
+            g = self.Graph(n=n, src=rng.integers(0, n, m),
+                           dst=rng.integers(0, n, m))
+            bd = self.blest.to_device(self.build_bvss(
+                g, self.BvssConfig(sigma=sigma, tau=tau)), device=self.dev)
+            what = f"serve pool case {case} (n={n}, sigma={sigma}, tau={tau})"
+            kw = PACKED_KAPPAS[case % len(PACKED_KAPPAS)] // 32
+            fp = planes(bd, self.rand_words(rng, (bd.n_ext, kw)))
+            v = self.rand_words(rng, (bd.n_ext, kw), empty=0.3)
+            rows = bd.row_ids.reshape(-1)
+            one_row = torch.full_like(rows, int(rng.integers(bd.n_ext)))
+            k = self.kernels["pull_scatter_ms_packed"]
+            for r, w in ((rows, what), (one_row, f"{what}, one row")):
+                self.same("pull_scatter_ms_packed",
+                          k["fn"](v, bd.masks, fp, bd.v2r, r, sigma=sigma),
+                          k["plain"](v, bd.masks, fp, bd.v2r, r, sigma), w)
+            k = self.kernels["pull_ms_packed_queued"]
+            for fill in ("empty", "full", "some"):
+                if fill == "empty":
+                    act = np.zeros(0, np.int32)
+                elif fill == "full":
+                    act = np.arange(bd.num_vss, dtype=np.int32)
+                else:
+                    act = np.sort(rng.choice(
+                        max(bd.num_vss, 1), int(rng.integers(
+                            0, bd.num_vss + 1)), replace=False))
+                qids = np.full(self.blest.bucket_size(act.size), bd.num_vss,
+                               np.int32)
+                qids[: act.size] = act
+                qids = self.t(qids)
+                self.same("pull_ms_packed_queued",
+                          k["fn"](bd.masks, fp, bd.v2r, qids, sigma=sigma),
+                          k["plain"](bd.masks, fp, bd.v2r, qids, sigma),
+                          f"{what}, {fill} bucket")
+            tiles = mma.prep_mma_tiles(bd, block=(8, 16)[case % 2])
+            k = self.kernels["pull_scatter_mma_ms_packed"]
+            a = self.t(rng.integers(-128, 128, tuple(tiles.a_planes.shape))
+                       .astype(np.int8))
+            one_row = torch.full_like(tiles.rows, int(rng.integers(bd.n_ext)))
+            for planes_, r, w in ((tiles.a_planes, tiles.rows, what),
+                                  (a, tiles.rows, f"{what}, int8 planes"),
+                                  (a, one_row, f"{what}, int8, one row")):
+                self.same("pull_scatter_mma_ms_packed",
+                          k["fn"](v, planes_, fp, tiles.v2r, r, sigma=sigma),
+                          k["plain"](v, planes_, fp, tiles.v2r, r, sigma), w)
+
     # ------------------------------------------- phase 3b: multi-source --
     def ms_row(self, label, layout, kappa, levels, dt, lane_edges):
         row = {"graph": label, "layout": layout, "kappa": kappa,
@@ -552,11 +667,25 @@ class Smoke:
         return bd_srcs, srcs
 
     # ------------------------ phase 3b: multi-source production shapes --
-    def chunked(self, name, args, n):
+    def chunked(self, name, args, n=None):
         """The plain version of ``name`` over the whole arrays, in chunks of
-        CHUNK_VSS VSSs (its int32 counts over all VSSs would not fit)."""
+        CHUNK_VSS VSSs (its int32 counts over all VSSs would not fit); the
+        queued pull in chunks of CHUNK_VSS ids."""
         torch = self.torch
         plain = self.kernels[name]["plain"]
+        if name in ("pull_scatter_ms_packed", "pull_scatter_mma_ms_packed"):
+            v, lead, f, v2r, rows = args
+            tau = lead.shape[1]
+            out = v
+            for i in range(0, lead.shape[0], CHUNK_VSS):
+                j = i + CHUNK_VSS
+                out = plain(out, lead[i:j], f, v2r[i:j],
+                            rows[i * tau:j * tau])
+            return out
+        if name == "pull_ms_packed_queued":
+            masks, f, v2r, qids = args
+            return torch.cat([plain(masks, f, v2r, qids[i:i + CHUNK_VSS])
+                              for i in range(0, qids.numel(), CHUNK_VSS)])
         if name == "scatter_or":
             dest, rows, marks = args
             step = CHUNK_VSS * (rows.numel() // n)  # slots of CHUNK_VSS VSSs
@@ -791,6 +920,324 @@ class Smoke:
                 fail(f"{label}: PackedMsBfs({kernel}) differs from the "
                      "byteplane MS-BFS")
 
+    # -------------------------------------------- phase 6: serve engine --
+    def serve_specs(self, g, oracle_srcs, n_sources, seed):
+        """A ticket stream: ``n_sources`` seeded sources (the oracle's
+        first), each once as bfs, closeness, distance (seeded target) and
+        reach, interleaved."""
+        np = self.np
+        rng = np.random.default_rng(seed)
+        pool = [int(s) for s in oracle_srcs]
+        rest = [int(s) for s in self.sources(g, n_sources, seed)
+                if int(s) not in pool]
+        pool = (pool + rest)[:n_sources]
+        return [(kind, src, int(rng.integers(g.n))
+                 if kind == "distance" else None)
+                for src in pool for kind in SERVE_KINDS]
+
+    def serve_expect(self, b, g, specs):
+        """What each ticket must return, from ``Blest.msbfs`` over the
+        stream's sources (byteplane lanes, 64 at a time): the level array's
+        digest, far, reach, the target's level, and the lane-edges (edges
+        whose source the lane had reached when it finished)."""
+        np = self.np
+        deg = g.out_degree
+        targets = {}
+        for kind, src, tgt in specs:
+            if kind == "distance":
+                targets.setdefault(src, []).append(tgt)
+        srcs = sorted({src for _, src, _ in specs})
+        per_src = {}
+        for i in range(0, len(srcs), MS_SOURCES):
+            batch = srcs[i:i + MS_SOURCES]
+            lv = b.msbfs(np.asarray(batch))
+            for src, row in zip(batch, lv):
+                reached = row != self.blest.UNREACHED
+                e = {"far": int(row[reached].sum(dtype=np.int64)),
+                     "reach": int(reached.sum()),
+                     "edges": int(deg[reached].sum()),
+                     "digest": self.digest(row), "to": {}}
+                for tgt in targets.get(src, ()):
+                    d = int(row[tgt])
+                    e["to"][tgt] = ((None, e["edges"])
+                                    if d == self.blest.UNREACHED
+                                    else (d, int(deg[row <= d].sum())))
+                per_src[src] = e
+        out = []
+        for kind, src, tgt in specs:
+            e = dict(per_src[src])
+            if kind == "distance":
+                e["distance"], e["edges"] = e["to"][tgt]
+            out.append(e)
+        return out
+
+    def digest(self, levels):
+        return hashlib.sha1(self.np.ascontiguousarray(
+            levels, dtype=self.np.int32).tobytes()).hexdigest()
+
+    def serve_check(self, label, t, want):
+        """One ticket against its expected values."""
+        r = t.result()
+        kind = t.query.kind
+        if kind == "distance":  # the lane stops at the target
+            ok = r.distance == want["distance"]
+        else:
+            ok = r.far == want["far"] and r.reach == want["reach"]
+        if kind == "bfs":
+            ok = ok and self.digest(r.levels) == want["digest"]
+        elif kind == "closeness":
+            n1, far = self.graphs_n[label] - 1, want["far"]
+            ok = ok and r.closeness == (n1 / far if far > 0 else 0.0)
+        if not ok:
+            fail(f"{label}: ticket {int(t)} ({kind} from {t.query.source}) "
+                 f"differs from the independent result")
+
+    def serve_oracle(self, label, t):
+        """One ticket against the ref_bfs oracle's levels."""
+        lv = self.oracle[label, t.query.source]
+        try:
+            self.workloads.verify_result(t.result(), t.query, lv,
+                                         unreached=self.ref_bfs.UNREACHED)
+        except AssertionError as e:
+            fail(f"{label}: ticket {int(t)} differs from the oracle: {e}")
+
+    def serve_engine(self, label, g, specs, expect, **kw):
+        """Build one engine on ``g`` (timed apart), submit the stream at
+        once, drain it, check every ticket; returns the engine's row."""
+        np = self.np
+        eng = self.bfs_engine.BfsEngine(device=self.dev, **kw)
+        eng.register_graph(label, g)
+        self.sync()
+        t0 = time.perf_counter()
+        art = eng.cache.get(label)
+        self.sync()
+        build_s = time.perf_counter() - t0
+        sw = art.switching
+        if sw is not None:
+            log(f"{label} {kw}: probe enabled={sw.enabled} with="
+                f"{sw.time_with:.4f}s without={sw.time_without:.4f}s "
+                f"mma={sw.time_mma} dense_layout={sw.dense_layout}")
+        t0 = time.perf_counter()
+        tickets = [eng.submit(label, src, kind, target=tgt)
+                   for kind, src, tgt in specs]
+        eng.run()
+        self.sync()
+        wall = time.perf_counter() - t0
+        for t, want in zip(tickets, expect):
+            if t.state != "DONE":
+                fail(f"{label}: ticket {int(t)} ended {t.state}: {t.error}")
+            self.serve_check(label, t, want)
+            if (label, t.query.source) in self.oracle:
+                self.serve_oracle(label, t)
+        st = eng.stats
+        if st["admissions_midflight"] == 0:
+            fail(f"{label} {kw}: no mid-flight admission")
+        lat = np.array([t.latency for t in tickets]) * 1e3
+        row = {
+            "graph": label, "layout": kw["layout"],
+            "resolved_layout": eng._runners[label].layout,
+            "switching": kw["switching"], "kappa": kw["kappa"],
+            "tickets": len(tickets), "build_s": build_s, "wall_s": wall,
+            "tickets_per_s": len(tickets) / wall,
+            "lane_edges_per_s": sum(e["edges"] for e in expect) / wall,
+            "levels_dense": st["levels_dense"],
+            "levels_queued": st["levels_queued"], "ticks": st["ticks"],
+            "ms_per_tick": wall * 1e3 / st["ticks"],
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "admissions_midflight": st["admissions_midflight"],
+        }
+        if sw is not None:
+            row["probe"] = {"enabled": sw.enabled,
+                            "time_with_s": sw.time_with,
+                            "time_without_s": sw.time_without,
+                            "time_mma_s": sw.time_mma,
+                            "dense_layout": sw.dense_layout}
+        self.serve_rows.append(row)
+        log(f"serve {row}")
+        del eng, art, tickets
+        if self.dev.type == "cuda":
+            self.torch.cuda.empty_cache()
+        return row
+
+    def serve_families(self):
+        """Every family at scale 10 under each layout x switching: every
+        ticket through verify_result against ref_bfs."""
+        t0 = time.perf_counter()
+        tickets = 0
+        for family in self.graphs.FAMILIES:
+            g = self.graphs.make(family, 10)
+            label = f"{family}-10"
+            specs = self.serve_specs(g, [], 4, seed=9)
+            want = {src: self.ref_bfs.bfs_levels(g, src)
+                    for src in {src for _, src, _ in specs}}
+            for layout in ("packed", "mma", "byteplane"):
+                for switching in ("off", "on", "auto"):
+                    eng = self.bfs_engine.BfsEngine(
+                        kappa=32, layout=layout, switching=switching,
+                        device=self.dev)
+                    eng.register_graph(label, g)
+                    ts = [eng.submit(label, src, kind, target=tgt)
+                          for kind, src, tgt in specs]
+                    eng.run()
+                    for t in ts:
+                        try:
+                            self.workloads.verify_result(
+                                t.result(), t.query, want[t.query.source],
+                                unreached=self.ref_bfs.UNREACHED)
+                        except AssertionError as e:
+                            fail(f"{label} {layout}/{switching}: {e}")
+                    tickets += len(ts)
+            log(f"{label} serve ok")
+        self.serve_rows.append({"graph": "families-10", "layout": "all",
+                                "switching": "all", "kappa": 32,
+                                "tickets": tickets,
+                                "wall_s": time.perf_counter() - t0})
+
+    def serve_path(self, kron, road):
+        """Phase 6.  ``kron`` / ``road`` are (Blest, Graph, label, oracle
+        sources).  Expected values first (their launches are not the
+        path's), then the launch counts are zeroed and the engines run."""
+        ops = self.ops
+        streams = []
+        for (b, g, label, osrcs), n_src, seed in ((kron, KRON_SERVE_SOURCES,
+                                                   10),
+                                                  (road, ROAD_SERVE_SOURCES,
+                                                   11)):
+            self.graphs_n[label] = g.n
+            specs = self.serve_specs(g, osrcs, n_src, seed)
+            t0 = time.perf_counter()
+            expect = self.serve_expect(b, g, specs)
+            log(f"{label}: {len(specs)} tickets' expected values in "
+                f"{time.perf_counter() - t0:.1f} s")
+            streams.append((g, label, specs, expect))
+        self.sync()
+        ops.reset_launch_counts()
+        (kg, klabel, kspecs, kexp), (rg, rlabel, rspecs, rexp) = streams
+        common = dict(reorder="natural")
+        a = self.serve_engine(klabel, kg, kspecs, kexp, kappa=256,
+                              layout="packed", switching="on", **common)
+        if not (a["levels_dense"] and a["levels_queued"]):
+            fail(f"{klabel}: packed/on ran no dense or no queued level")
+        self.serve_engine(klabel, kg, kspecs, kexp, kappa=256, layout="mma",
+                          switching="off", **common)
+        self.serve_engine(klabel, kg, kspecs, kexp, kappa=256,
+                          layout="auto", switching="auto", **common)
+        d = self.serve_engine(rlabel, rg, rspecs, rexp, kappa=32,
+                              layout="packed", switching="on")
+        depth = int(self.oracle[rlabel, rspecs[0][1]].max())
+        if d["ticks"] <= depth:
+            fail(f"{rlabel}: {d['ticks']} ticks, fewer than the {depth} "
+                 "levels of one lane")
+        self.serve_families()
+        self.sync()
+        counts = ops.launch_counts()
+        log(f"serve path launches: {counts}")
+        missing = [k for k in SERVE_PATH_KERNELS if counts[k] == 0]
+        if missing:
+            fail(f"kernels never launched on the serve path: {missing}")
+        return counts
+
+    # --------------------------- phase 6: serve kernels at production size --
+    def production_serve_kernels(self, bd, packed_srcs, counts):
+        """Equality, times and bounds of kernels 8-10 at the shapes of
+        ``bd``: the fused levels on the state two levels from the 256
+        sources, the queued pull over the bucket of the VSSs active one
+        level from them (the sparse frontier that Eq. (6) sends to the
+        queue)."""
+        np, torch = self.np, self.torch
+        runner = self.msbfs_packed.PackedMsBfs(bd, kernel="mma")
+        v0 = runner.run(packed_srcs, max_levels=0)[0]
+        v1 = runner.run(packed_srcs, max_levels=1)[0]
+        v2 = runner.run(packed_srcs, max_levels=2)[0]
+        fp = self.msbfs.frontier_planes(bd, v2 & ~v1)
+        fq = self.msbfs.frontier_planes(bd, v1 & ~v0)
+        tiles = runner._mma_tiles
+        n_v, tau = bd.masks.shape
+        s1, sigma, kw = fp.shape
+        rows = bd.row_ids.reshape(-1)
+        n_q = tiles.a_planes.shape[0]
+        active = (fq.reshape(s1, -1) != 0).any(dim=1).cpu().numpy()
+        act = self.blest.expand_active_sets(bd.real_ptrs,
+                                            active[: bd.num_sets])
+        qids = np.full(self.blest.bucket_size(act.size), bd.num_vss,
+                       np.int32)
+        qids[: act.size] = act
+        qids = self.t(qids)
+        b_q = qids.numel()
+        parents = int(torch.unique(bd.v2r.index_select(0, qids)).numel())
+        vbytes = 2 * 4 * v2.numel()
+        cells = {
+            "pull_scatter_ms_packed": (
+                (v1, bd.masks, fp, bd.v2r, rows),
+                n_v * tau + 8 * n_v * tau + 4 * s1 * sigma * kw + 4 * n_v
+                + vbytes,
+                2 * n_v * tau * sigma * kw + n_v * tau * kw, ALU_OPS_PER_S),
+            "pull_ms_packed_queued": (
+                (bd.masks, fq, bd.v2r, qids),
+                b_q * tau + 8 * b_q + 4 * parents * sigma * kw
+                + 4 * b_q * tau * kw,
+                2 * b_q * tau * sigma * kw, ALU_OPS_PER_S),
+            "pull_scatter_mma_ms_packed": (
+                (v1, tiles.a_planes, fp, tiles.v2r, tiles.rows),
+                n_q * tau * sigma + 8 * n_q * tau + 4 * s1 * sigma * kw
+                + 4 * n_q + vbytes,
+                2 * n_q * tau * sigma * kw * 32, INT8_MMA_OPS_PER_S),
+        }
+        rows_out = []
+        for name, (args, nbytes, nops, peak) in cells.items():
+            k = self.kernels[name]
+            what = (f"production shapes (N_v={n_v}, tau={tau}, "
+                    f"kappa={32 * kw}" + (f", B={b_q})" if "queued" in name
+                                          else ")"))
+            self.same(name, k["fn"](*args), self.chunked(name, args), what)
+            ms_ = self.time_ms(lambda: k["fn"](*args))
+            plain_ms = self.time_ms(lambda: self.chunked(name, args),
+                                    iters=2, warmup=1)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = nops / peak * 1e3
+            rows_out.append({
+                "name": name, "route": "cuda", "source": k["source"],
+                "replaces": k["replaces"], "launches": counts[name],
+                "max_abs_err": k["max_abs_err"], "ms": ms_,
+                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None,
+            })
+            log(f"{name}: {ms_:.4f} ms (plain {plain_ms:.3f}, bound "
+                f"{max(t_bytes, t_ops):.4f} from {nbytes} bytes, {nops} "
+                f"operations) at {what}")
+        runners = {lay: self.bfs_engine._LaneRunner(bd, 32 * kw, layout=lay,
+                                                    mma_tiles=tiles)
+                   for lay in ("packed", "mma")}
+        st = self.bfs_engine.LaneState(
+            v=v1, f=fp, levels=torch.full((bd.n_ext, 32 * kw),
+                                          self.blest.UNREACHED,
+                                          dtype=torch.int32, device=v1.device))
+        qnp = qids.cpu().numpy()
+        stages = {
+            "lane_runner_dense_level_packed": lambda: runners["packed"].level(
+                st, 3),
+            "lane_runner_dense_level_mma": lambda: runners["mma"].level(st, 3),
+            "lane_runner_queued_level": lambda: runners["packed"].level_queued(
+                st._replace(f=fq), 2, qnp),
+            "pull_ms_packed+scatter_or": lambda: self.ops.scatter_or(
+                v1, rows, self.ops.pull_ms_packed(
+                    bd.masks, fp, bd.v2r, sigma=sigma).reshape(-1, kw)),
+            "pull_mma_ms_packed+scatter_or": lambda: self.ops.scatter_or(
+                v1, tiles.rows, self.ops.pull_mma_ms_packed(
+                    tiles.a_planes, fp, tiles.v2r,
+                    sigma=sigma).reshape(-1, kw)),
+        }
+        self.serve_rows.append({
+            "graph": "level", "layout": "packed", "kappa": 32 * kw,
+            "queued_vss": b_q,
+            "stage_ms": {k: self.time_ms(f, iters=5, warmup=1)
+                         for k, f in stages.items()}})
+        log(f"one packed serve level, and the unfused pair: "
+            f"{self.serve_rows[-1]}")
+        return rows_out
+
     def sources(self, g, k, seed):
         np = self.np
         cand = np.nonzero(g.out_degree > 0)[0]
@@ -812,6 +1259,7 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
     log("phase 2: kernels against their plain versions over the shape pool")
     smoke.kernel_pool()
     smoke.ms_kernel_pool()
+    smoke.serve_kernel_pool()
 
     log(f"phase 3: main path, kron scale {kron_scale}")
     t0 = time.perf_counter()
@@ -822,20 +1270,21 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
     b = Blest.preprocess(g, reorder="natural", probe_switching=True,
                          device=smoke.dev)
     log(f"preprocessed: {b.stats}, N_v={b.bd.num_vss}")
-    smoke.check_bfs(b, g, sources, COMBOS, f"kron-{kron_scale}")
+    kron_label = f"kron-{kron_scale}"
+    smoke.check_bfs(b, g, sources, COMBOS, kron_label)
     smoke.sync()
     counts = ops.launch_counts()
     log(f"main path launches: {counts}")
     missing = [k for k in SS_KERNELS if counts[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    smoke.time_bfs(b, g, sources, f"kron-{kron_scale}")
-    smoke.level_cost(b, sources[0], f"kron-{kron_scale}", depth=2)
+    smoke.time_bfs(b, g, sources, kron_label)
+    smoke.level_cost(b, sources[0], kron_label, depth=2)
     kernel_rows = smoke.production_kernels(b.bd, counts)
 
     log(f"phase 3b: multi-source path, kron scale {kron_scale}")
     ops.reset_launch_counts()
-    bd_srcs, packed_srcs = smoke.ms_path(b, g, f"kron-{kron_scale}")
+    bd_srcs, packed_srcs = smoke.ms_path(b, g, kron_label)
     smoke.sync()
     ms_counts = ops.launch_counts()
     log(f"multi-source path launches: {ms_counts}")
@@ -844,19 +1293,21 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
         fail(f"kernels never launched on the multi-source path: {missing}")
     kernel_rows += smoke.production_ms_kernels(b.bd, bd_srcs, packed_srcs,
                                                ms_counts)
-    del b, g
+    kron = (b, g, kron_label, sources)
 
     log(f"phase 4: road scale {road_scale}")
     g = graphs.make("road", road_scale)
     b = Blest.preprocess(g, device=smoke.dev)
     log(f"preprocessed: {b.stats}, N_v={b.bd.num_vss}")
+    road_label = f"road-{road_scale}"
     road_sources = [0, int(smoke.sources(g, 1, seed=2)[0])]
     smoke.check_bfs(b, g, road_sources, [("fused", None, True),
                                          ("bucketed", None, True)],
-                    f"road-{road_scale}")
-    smoke.time_bfs(b, g, road_sources, f"road-{road_scale}")
-    smoke.level_cost(b, 0, f"road-{road_scale}", depth=3)
-    smoke.ms_road(b, g, f"road-{road_scale}")
+                    road_label)
+    smoke.time_bfs(b, g, road_sources, road_label)
+    smoke.level_cost(b, 0, road_label, depth=3)
+    smoke.ms_road(b, g, road_label)
+    road = (b, g, road_label, road_sources)
     del b, g
 
     log("phase 5: every family at scale 10")
@@ -867,6 +1318,11 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
                         f"{family}-10")
         smoke.ms_family(b, g, f"{family}-10")
         log(f"{family}-10 ok ({b.stats.algorithm}, lazy={b.stats.lazy})")
+
+    log("phase 6: the serve engine")
+    serve_counts = smoke.serve_path(kron, road)
+    kernel_rows += smoke.production_serve_kernels(kron[0].bd, packed_srcs,
+                                                  serve_counts)
     smoke.sync()
     return kernel_rows
 
@@ -902,6 +1358,7 @@ def main(argv=None) -> None:
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"bfs": smoke.bfs_rows}))
     print(json.dumps({"msbfs": smoke.ms_rows}))
+    print(json.dumps({"serve": smoke.serve_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

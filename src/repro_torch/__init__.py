@@ -7,6 +7,8 @@ It imports ``torch`` and numpy only: never ``jax`` and never ``repro``.
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; a tensor's device picks the path of every kernel (the
 hand-written CUDA kernel for a CUDA tensor, its plain PyTorch version for a
-CPU tensor).  Ported so far: single-source BLEST BFS through
-:class:`repro_torch.core.pipeline.Blest` (``preprocess`` then ``bfs``).
+CPU tensor).  Ported so far: single- and multi-source BLEST BFS and
+closeness through :class:`repro_torch.core.pipeline.Blest`, the packed
+multi-source layout (``core/msbfs_packed``), and the serve engine
+(:class:`repro_torch.serve.bfs_engine.BfsEngine`).
 """

@@ -3,20 +3,23 @@ launch their entry points on torch's current stream.
 
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch/lib<name>-<hash>.so`` at
 the root of the checkout, compiled for ``sm_90a`` with a plain C interface.
-The hash covers the source and the flags, so an edited source is rebuilt and
-a stale library is never loaded.  The build runs at first use, never at
-import; :func:`build_all` starts one nvcc per source, all at once.
+The hash covers the source, every shared header (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt and a stale library is never
+loaded.  The build runs at first use, never at import; :func:`build_all`
+starts one nvcc per source, all at once.  :func:`library` loads each library
+once per process under a lock, so the serve engine's builder thread and the
+main thread may be the first callers together.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 
 import torch
 
@@ -46,7 +49,18 @@ SIGNATURES = {
         "blest_scatter_or": ([_P, _P, _P, _I64, _INT, _P], _INT),
         "blest_error_string": ([_INT], ctypes.c_char_p),
     },
+    "blest_serve": {
+        "blest_pull_scatter_ms_packed": (
+            [_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P], _INT),
+        "blest_pull_scatter_mma_ms_packed": (
+            [_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P], _INT),
+        "blest_pull_ms_packed_queued": (
+            [_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P], _INT),
+        "blest_error_string": ([_INT], ctypes.c_char_p),
+    },
 }
+_LOCK = threading.Lock()  # guards _LIBS and the launch counters
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def nvcc() -> str:
@@ -64,6 +78,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -97,14 +113,20 @@ def build_all(names=tuple(SIGNATURES)) -> dict[str, pathlib.Path]:
     return paths
 
 
-@functools.cache
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``lib<name>``, built first if it is missing."""
-    lib = ctypes.CDLL(str(build_all((name,))[name]))
-    for fn, (argtypes, restype) in SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
-    return lib
+    """The loaded library ``lib<name>``, built first if it is missing; built
+    and loaded once per process, whichever thread asks first."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if name not in _LIBS:
+            lib = ctypes.CDLL(str(build_all((name,))[name]))
+            for fn, (argtypes, restype) in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -114,11 +136,16 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def launch(name: str, fn: str, device: torch.device, *args) -> None:
+def launch(name: str, fn: str, device: torch.device, *args,
+           counter) -> None:
     """Calls ``fn`` of ``lib<name>`` with ``args`` and torch's current stream
-    on ``device``; raises on a refused launch."""
+    on ``device``; raises on a refused launch, else adds one to
+    ``counter.launches`` (the wrapper's count; under the lock, since the
+    serve engine launches from its builder thread too)."""
     lib = library(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fn)(*args, stream)
     check(lib, err, fn)
+    with _LOCK:
+        counter.launches += 1

@@ -20,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ms_words.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -113,12 +115,8 @@ __global__ void pull_ms_packed_kernel(const uint8_t* __restrict__ masks,
   uint32_t* out = marks + q * words;
   for (int i = threadIdx.x; i < words; i += blockDim.x) {
     const int j = i / kw;
-    const int w = i % kw;
-    uint32_t acc = 0;
-    for (unsigned m = masks[q * tau + j] & sigma_bits; m; m &= m - 1) {
-      acc |= fq[(__ffs(m) - 1) * kw + w];
-    }
-    out[i] = acc;
+    out[i] = blest::or_pull_word(masks[q * tau + j] & sigma_bits, fq, kw,
+                                 i % kw);
   }
 }
 
@@ -131,11 +129,10 @@ __global__ void pull_ms_packed_kernel(const uint8_t* __restrict__ masks,
 //   count[l] = sum_{b < sigma} a[q, j, b] * bit_l(f[v2r[q], b, w]),
 //   marks[q, j, w] = sum_l (count[l] > 0) << l
 // Bound: bytes (a_planes read, marks written); the 2*sigma*kappa operations
-// per slot at the int8 tensor-core rate take less time.  Scalar code: when
-// no weight of the row is negative, count[l] > 0 exactly when some b with
-// a > 0 has bit l set, so the word is the OR of those f words (one pass);
-// a row with a negative weight runs the 32-lane count loop.  Both are exact
-// on any int8 a_planes, as the reference is.  Zero weights read nothing.
+// per slot at the int8 tensor-core rate take less time.  Scalar code
+// (blest::mma_word): the OR of the positively weighted words, or the 32-lane
+// count loop where a weight is negative; exact on any int8 a_planes, as the
+// reference is.
 __global__ void pull_mma_ms_packed_kernel(const int8_t* __restrict__ a_planes,
                                           const uint32_t* __restrict__ f,
                                           const int32_t* __restrict__ v2r,
@@ -148,42 +145,7 @@ __global__ void pull_mma_ms_packed_kernel(const int8_t* __restrict__ a_planes,
   uint32_t* out = marks + q * words;
   for (int i = threadIdx.x; i < words; i += blockDim.x) {
     const int j = i / kw;
-    const int w = i % kw;
-    const int8_t* aj = aq + j * sigma;
-    // weights past sigma are 0; the unrolled loops keep a and fw in
-    // registers.  sigma == 8 reads the row in one aligned 8-byte load.
-    uint64_t row = 0;
-    if (sigma == 8 && (reinterpret_cast<uintptr_t>(aj) & 7u) == 0) {
-      row = *reinterpret_cast<const uint64_t*>(aj);
-    } else {
-      for (int b = 0; b < sigma; ++b) {
-        row |= static_cast<uint64_t>(static_cast<uint8_t>(aj[b])) << (8 * b);
-      }
-    }
-    int a[8];
-    uint32_t fw[8];
-    uint32_t pos_or = 0;
-    bool negative = false;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      a[b] = static_cast<int8_t>(row >> (8 * b));
-      fw[b] = a[b] ? fq[b * kw + w] : 0u;
-      if (a[b] > 0) pos_or |= fw[b];
-      negative |= a[b] < 0;
-    }
-    uint32_t word = pos_or;
-    if (negative) {
-      word = 0;
-      for (int l = 0; l < 32; ++l) {
-        int count = 0;
-#pragma unroll
-        for (int b = 0; b < 8; ++b) {
-          count += a[b] * static_cast<int>((fw[b] >> l) & 1u);
-        }
-        word |= static_cast<uint32_t>(count > 0) << l;
-      }
-    }
-    out[i] = word;
+    out[i] = blest::mma_word(aq + j * sigma, sigma, fq, kw, i % kw);
   }
 }
 

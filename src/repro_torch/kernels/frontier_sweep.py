@@ -45,8 +45,8 @@ def frontier_sweep(v_curr: torch.Tensor, v_next: torch.Tensor,
                       v_curr.data_ptr(), v_next.data_ptr(), level.data_ptr(),
                       v_out.data_ptr(), level_out.data_ptr(),
                       f_words.data_ptr(), active.data_ptr(), num_sets, sigma,
-                      int(ell))
-        frontier_sweep.launches += 1
+                      int(ell),
+                      counter=frontier_sweep)
     return v_out, level_out, f_words, active
 
 

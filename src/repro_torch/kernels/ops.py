@@ -13,13 +13,17 @@ from repro_torch.kernels import frontier_sweep as _sweep
 from repro_torch.kernels import pull_mma_ms_packed as _mma
 from repro_torch.kernels import pull_ms as _pull_ms
 from repro_torch.kernels import pull_ms_packed as _pull_ms_packed
+from repro_torch.kernels import pull_ms_packed_queued as _queued
+from repro_torch.kernels import pull_scatter_ms_packed as _pull_scatter
 from repro_torch.kernels import pull_ss as _pull_ss
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import scatter_or as _scatter_or
 
 KERNELS = (_pull_ss.pull_ss, _pull_ss.pull_ss_packed, _sweep.frontier_sweep,
            _pull_ms.pull_ms, _pull_ms_packed.pull_ms_packed,
-           _scatter_or.scatter_or, _mma.pull_mma_ms_packed)
+           _scatter_or.scatter_or, _mma.pull_mma_ms_packed,
+           _pull_scatter.pull_scatter_ms_packed,
+           _queued.pull_ms_packed_queued, _mma.pull_scatter_mma_ms_packed)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -75,6 +79,31 @@ def pull_mma_ms_packed(a_planes, f_packed, v2r, *, sigma: int = 8,
                                            f_packed.index_select(0, v2r))
     return _mma.pull_mma_ms_packed(a_planes, f_packed, v2r, sigma=sigma,
                                    block=block)
+
+
+def pull_scatter_ms_packed(v, masks, f_packed, v2r, rows, *, sigma: int = 8):
+    if _on_cpu(v):
+        return _pull_scatter.pull_scatter_ms_packed_ref(
+            v, masks, f_packed.index_select(0, v2r), rows, sigma=sigma)
+    return _pull_scatter.pull_scatter_ms_packed(v, masks, f_packed, v2r, rows,
+                                                sigma=sigma)
+
+
+def pull_ms_packed_queued(masks, f_packed, v2r, qids, *, sigma: int = 8):
+    if _on_cpu(masks):
+        return _queued.pull_ms_packed_queued_ref(masks, f_packed, v2r, qids,
+                                                 sigma=sigma)
+    return _queued.pull_ms_packed_queued(masks, f_packed, v2r, qids,
+                                         sigma=sigma)
+
+
+def pull_scatter_mma_ms_packed(v, a_planes, f_packed, v2r, rows, *,
+                               sigma: int = 8):
+    if _on_cpu(v):
+        return _mma.pull_scatter_mma_ms_packed_ref(
+            v, a_planes, f_packed.index_select(0, v2r), rows)
+    return _mma.pull_scatter_mma_ms_packed(v, a_planes, f_packed, v2r, rows,
+                                           sigma=sigma)
 
 
 def launch_counts() -> dict[str, int]:

@@ -16,10 +16,19 @@ kernel from the packed words.  Tile prep pads the VSS list to a multiple of
 sentinel rows ``n_pad``), and :func:`pull_mma_ms_packed` refuses a VSS count
 that is not a multiple of ``block``, as the reference does.
 
-Words are ``torch.int32`` bit patterns.  :func:`pull_mma_ms_packed` takes
-CUDA tensors only and counts its launches in ``pull_mma_ms_packed.launches``;
-:mod:`repro_torch.kernels.ops` sends CPU tensors to
-:func:`pull_mma_ms_packed_ref`.
+:func:`pull_scatter_mma_ms_packed` is the serve engine's dense MMA level:
+the same product per slot, thresholded on its own and ORed straight into
+the visited words (the MMA form of
+:mod:`repro_torch.kernels.pull_scatter_ms_packed`), so no marks are
+materialised.  Each slot is thresholded before the OR, as the TPU kernel
+does; ``repro``'s ``pull_scatter_mma_ms_packed_ref`` instead sums the counts
+of duplicate rows before it thresholds, which differs only where a plane
+has a negative weight (never on ``prep_mma_tiles``'s 0/1 planes).
+
+Words are ``torch.int32`` bit patterns.  The wrappers take CUDA tensors only
+and count their launches in ``<wrapper>.launches``;
+:mod:`repro_torch.kernels.ops` sends CPU tensors to the plain versions
+:func:`pull_mma_ms_packed_ref` and :func:`pull_scatter_mma_ms_packed_ref`.
 """
 from __future__ import annotations
 
@@ -30,7 +39,9 @@ import torch
 
 from repro_torch.kernels import _build, words
 from repro_torch.kernels.pull_ms import check_parents
+from repro_torch.kernels.pull_scatter_ms_packed import check_scatter
 from repro_torch.kernels.pull_ss import _check
+from repro_torch.kernels.scatter_or import scatter_or_ref
 
 MMA_VSS_BLOCK = 8  # VSS tiles per block of the reference's grid
 
@@ -137,8 +148,8 @@ def pull_mma_ms_packed(a_planes: torch.Tensor, f_packed: torch.Tensor,
         _build.launch("blest_ms", "blest_pull_mma_ms_packed",
                       a_planes.device, a_planes.data_ptr(),
                       f_packed.data_ptr(), v2r.data_ptr(), marks.data_ptr(),
-                      n_q, tau, sigma, kw)
-        pull_mma_ms_packed.launches += 1
+                      n_q, tau, sigma, kw,
+                      counter=pull_mma_ms_packed)
     return marks
 
 
@@ -158,3 +169,48 @@ def pull_mma_ms_packed_ref(a_planes: torch.Tensor,
     for b in range(sigma):
         counts += a_planes[:, :, b, None].to(torch.int32) * planes[:, None, b]
     return words.pack_bits((counts > 0).view(n_q, tau, kw, 32))
+
+
+def pull_scatter_mma_ms_packed(v: torch.Tensor, a_planes: torch.Tensor,
+                               f_packed: torch.Tensor, v2r: torch.Tensor,
+                               rows: torch.Tensor, *,
+                               sigma: int = 8) -> torch.Tensor:
+    """A new (n_rows, kw) int32 tensor: ``v`` with each slot's MMA marks
+    (``pack(A[e] @ unpack(F[v2r[e // tau]]) > 0)``) OR-scattered into row
+    ``rows[e]``, on the GPU; bit-identical to ``pull_scatter_ms_packed`` on
+    the 0/1 planes of :func:`prep_mma_tiles`.
+
+    v:        (n_rows, kw) int32 visited words
+    a_planes: (n_q_pad, tau, sigma) int8 — :func:`prep_mma_tiles`
+    f_packed: (num_sets_ext, sigma, kw) int32 frontier words
+    v2r:      (n_q_pad,) int32 — sentinel-padded parent sets
+    rows:     (n_q_pad * tau,) int64 — sentinel-padded rows
+    """
+    _check(a_planes, torch.int8, 3, "a_planes")
+    n_q, tau, sig = a_planes.shape
+    if sig != sigma:
+        raise ValueError(f"a_planes has sigma={sig}, expected {sigma}")
+    check_parents(n_q, f_packed, torch.int32, v2r, sigma, a_planes)
+    check_scatter(v, rows, n_q * tau, f_packed)
+    out = v.clone()
+    kw = v.shape[1]
+    if rows.numel() and kw:
+        _build.launch("blest_serve", "blest_pull_scatter_mma_ms_packed",
+                      v.device, out.data_ptr(), a_planes.data_ptr(),
+                      f_packed.data_ptr(), v2r.data_ptr(), rows.data_ptr(),
+                      rows.numel(), tau, sigma, kw,
+                      counter=pull_scatter_mma_ms_packed)
+    return out
+
+
+pull_scatter_mma_ms_packed.launches = 0
+
+
+def pull_scatter_mma_ms_packed_ref(v: torch.Tensor, a_planes: torch.Tensor,
+                                   f_tiles: torch.Tensor,
+                                   rows: torch.Tensor) -> torch.Tensor:
+    """Plain version: per-slot marks of :func:`pull_mma_ms_packed_ref` over
+    the pre-gathered tiles ``f_tiles`` (``f_packed[v2r]``), thresholded per
+    slot, then the OR-scatter."""
+    marks = pull_mma_ms_packed_ref(a_planes, f_tiles)
+    return scatter_or_ref(v, rows, marks.reshape(-1, v.shape[1]))

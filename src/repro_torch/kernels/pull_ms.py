@@ -55,8 +55,8 @@ def pull_ms(masks: torch.Tensor, f_planes: torch.Tensor, v2r: torch.Tensor,
     if marks.numel():
         _build.launch("blest_ms", "blest_pull_ms", masks.device,
                       masks.data_ptr(), f_planes.data_ptr(), v2r.data_ptr(),
-                      marks.data_ptr(), n_q, tau, sigma, kappa)
-        pull_ms.launches += 1
+                      marks.data_ptr(), n_q, tau, sigma, kappa,
+                      counter=pull_ms)
     return marks
 
 

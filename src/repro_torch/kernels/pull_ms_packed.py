@@ -37,8 +37,8 @@ def pull_ms_packed(masks: torch.Tensor, f_packed: torch.Tensor,
     if marks.numel():
         _build.launch("blest_ms", "blest_pull_ms_packed", masks.device,
                       masks.data_ptr(), f_packed.data_ptr(), v2r.data_ptr(),
-                      marks.data_ptr(), n_q, tau, sigma, kw)
-        pull_ms_packed.launches += 1
+                      marks.data_ptr(), n_q, tau, sigma, kw,
+                      counter=pull_ms_packed)
     return marks
 
 

@@ -54,8 +54,8 @@ def pull_ss(masks: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
     if marks.numel():
         _build.launch("blest_ss", "blest_pull_ss", masks.device,
                       masks.data_ptr(), alphas.data_ptr(), marks.data_ptr(),
-                      n_v, tau)
-        pull_ss.launches += 1
+                      n_v, tau,
+                      counter=pull_ss)
     return marks
 
 
@@ -75,8 +75,8 @@ def pull_ss_packed(masks_packed: torch.Tensor,
     if marks.numel():
         _build.launch("blest_ss", "blest_pull_ss_packed", masks_packed.device,
                       masks_packed.data_ptr(), alphas.data_ptr(),
-                      marks.data_ptr(), n_v, words)
-        pull_ss_packed.launches += 1
+                      marks.data_ptr(), n_v, words,
+                      counter=pull_ss_packed)
     return marks
 
 

@@ -38,8 +38,8 @@ def scatter_or(dest: torch.Tensor, rows: torch.Tensor,
     out = dest.clone(memory_format=torch.contiguous_format)
     if t and kw:
         _build.launch("blest_ms", "blest_scatter_or", dest.device,
-                      out.data_ptr(), rows.data_ptr(), marks.data_ptr(), t, kw)
-        scatter_or.launches += 1
+                      out.data_ptr(), rows.data_ptr(), marks.data_ptr(), t, kw,
+                      counter=scatter_or)
     return out
 
 
