@@ -12,12 +12,14 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    equality, over the shape pool of tests/test_kernel_parity.py (random
    graphs, sigma in {2,4,8}, tau in {1,2,4}, ragged n, empty frontiers) and
    tau in {4,128} for the packed layouts; kappa in {8,32,48,3} for the
-   byteplane pull and {32,64} for the packed kernels, all-duplicate rows for
-   the scatter, random int8 planes (negative weights) for the MMA pull, and
-   a ragged VSS count that the MMA pull must refuse.  The serve kernels
-   over the same pool: the fused dense levels with duplicate and
-   all-on-one rows (the MMA form also on random int8 planes), and the
-   queued pull over empty, full and random buckets of VSS ids.
+   byteplane pull and {32,64,96,256} for the packed kernels (odd and even
+   word counts), all-duplicate rows for the scatter, random int8 planes
+   (negative weights) for the MMA pull, and a ragged VSS count that the MMA
+   pull must refuse.  The serve kernels over the same pool: the fused dense
+   levels with duplicate and all-on-one rows, all-zero masks and a VSS
+   count that is no multiple of the VSSs a block takes (the MMA form also
+   on random int8 planes), and the queued pull over empty, full and random
+   buckets of VSS ids.
 3. The main path at full size: kron (RMAT) scale 22, edge factor 16,
    through ``Blest.preprocess(g, reorder="natural", probe_switching=True)``
    and ``Blest.bfs`` from 4 seeded sources under all 8 driver combinations
@@ -41,7 +43,8 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
 4. The high-diameter family: road (2-D grid) scale 20, automatic reorder
    dispatch (RCM), fused and bucketed runs equal to the oracle; one batch of
    32 sources through ``Blest.msbfs`` and ``PackedMsBfs(kernel="gather")``,
-   equal in far and reach, two lanes equal to ``Blest.bfs``.
+   equal in far and reach, two lanes equal to ``Blest.bfs`` (launches
+   counted from just before the runs to just after); then their times.
 5. Every family of ``data/graphs.FAMILIES`` at scale 10 with automatic
    dispatch, all 8 combinations equal to the oracle; ``Blest.closeness``
    over all sources (fused and bucketed, both normalisations) against
@@ -67,8 +70,10 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
 
 Prints, before the last line: the card's name and power limit (as
 nvidia-smi gives them), one JSON line ``{"kernels": [...]}`` (launches on the
-main path, ms per launch, plain version's ms, the bound and what sets it,
-the library call's ms), one JSON line ``{"bfs": [...]}`` (ms, edges/s and
+main path; ``launches_kron_road``, the launches of the kron and road paths
+of phases 3, 3b, 4 and 6 together, without the scale-10 families; ms per
+launch, plain version's ms, the bound and what sets it, the library call's
+ms), one JSON line ``{"bfs": [...]}`` (ms, edges/s and
 depth per BFS; per-stage ms of one dense level) and one JSON line
 ``{"msbfs": [...]}`` (per multi-source run: graph, layout, kappa, levels,
 ms, lane-edges/s; per-stage ms of one dense multi-source level) and one
@@ -114,7 +119,7 @@ KRON_SOURCES = 4
 COMBOS = [(mode, lazy, packed) for mode in ("fused", "bucketed")
           for lazy in (True, False) for packed in (True, False)]
 MS_KAPPAS = (8, 32, 48, 3)   # byteplane lanes need no word alignment
-PACKED_KAPPAS = (32, 64)
+PACKED_KAPPAS = (32, 64, 96, 256)  # kw 1, 2, 3, 8: 32-bit tails, 64-bit pairs
 MS_SOURCES = 64              # kron: the byteplane batch
 PACKED_SOURCES = 256         # kron: the packed batch, kw = 8
 ROAD_SOURCES = 32
@@ -157,7 +162,7 @@ class Smoke:
         from repro_torch.kernels import pull_scatter_ms_packed as fused
         from repro_torch.serve import bfs_engine, workloads
 
-        self.np, self.torch, self.dev = np, torch, dev
+        self.np, self.torch, self.dev, self.fused = np, torch, dev, fused
         self.blest, self.ref_bfs, self.Blest = blest, ref_bfs, Blest
         self.msbfs, self.msbfs_packed, self.mma = msbfs, msbfs_packed, mma
         self.BvssConfig, self.build_bvss, self.Graph = (BvssConfig, build_bvss,
@@ -513,9 +518,11 @@ class Smoke:
     def serve_kernel_pool(self, seed: int = 2):
         """The fused dense levels (selective-OR and MMA form) and the
         queued pull over the pool: duplicate rows, all slots on one row,
-        random int8 planes for the MMA form, empty and full qids buckets;
-        each exactly equal to its plain version."""
+        all-zero masks, a VSS prefix that is no multiple of the VSSs a block
+        takes, random int8 planes for the MMA form, empty and full qids
+        buckets; each exactly equal to its plain version."""
         np, torch, mma = self.np, self.torch, self.mma
+        vss_per_block = self.fused.fused_vss_per_block
         rng = np.random.default_rng(seed)
         shapes = SHAPES + PACKED_SHAPES
         planes = self.msbfs.frontier_planes
@@ -530,13 +537,23 @@ class Smoke:
             kw = PACKED_KAPPAS[case % len(PACKED_KAPPAS)] // 32
             fp = planes(bd, self.rand_words(rng, (bd.n_ext, kw)))
             v = self.rand_words(rng, (bd.n_ext, kw), empty=0.3)
-            rows = bd.row_ids.reshape(-1)
+            rows = bd.rows32
             one_row = torch.full_like(rows, int(rng.integers(bd.n_ext)))
+            n_q = bd.masks.shape[0]
+            vpb = vss_per_block(tau, sigma, kw)
+            # a prefix of the VSSs whose count no block run divides
+            cut = n_q - 1 if n_q % vpb == 0 and n_q > 1 else n_q
             k = self.kernels["pull_scatter_ms_packed"]
-            for r, w in ((rows, what), (one_row, f"{what}, one row")):
+            for m_, v2r_, r, w in (
+                    (bd.masks, bd.v2r, rows, what),
+                    (bd.masks, bd.v2r, one_row, f"{what}, one row"),
+                    (torch.zeros_like(bd.masks), bd.v2r, rows,
+                     f"{what}, zero masks"),
+                    (bd.masks[:cut], bd.v2r[:cut], rows[: cut * tau],
+                     f"{what}, {cut} VSSs, {vpb} a block")):
                 self.same("pull_scatter_ms_packed",
-                          k["fn"](v, bd.masks, fp, bd.v2r, r, sigma=sigma),
-                          k["plain"](v, bd.masks, fp, bd.v2r, r, sigma), w)
+                          k["fn"](v, m_, fp, v2r_, r, sigma=sigma),
+                          k["plain"](v, m_, fp, v2r_, r, sigma), w)
             k = self.kernels["pull_ms_packed_queued"]
             for fill in ("empty", "full", "some"):
                 if fill == "empty":
@@ -556,16 +573,22 @@ class Smoke:
                           k["plain"](bd.masks, fp, bd.v2r, qids, sigma),
                           f"{what}, {fill} bucket")
             tiles = mma.prep_mma_tiles(bd, block=(8, 16)[case % 2])
+            trows = tiles.rows.to(torch.int32)
             k = self.kernels["pull_scatter_mma_ms_packed"]
             a = self.t(rng.integers(-128, 128, tuple(tiles.a_planes.shape))
                        .astype(np.int8))
-            one_row = torch.full_like(tiles.rows, int(rng.integers(bd.n_ext)))
-            for planes_, r, w in ((tiles.a_planes, tiles.rows, what),
-                                  (a, tiles.rows, f"{what}, int8 planes"),
-                                  (a, one_row, f"{what}, int8, one row")):
+            one_row = torch.full_like(trows, int(rng.integers(bd.n_ext)))
+            for planes_, v2r_, r, w in (
+                    (tiles.a_planes, tiles.v2r, trows, what),
+                    (a, tiles.v2r, trows, f"{what}, int8 planes"),
+                    (a, tiles.v2r, one_row, f"{what}, int8, one row"),
+                    (torch.zeros_like(a), tiles.v2r, trows,
+                     f"{what}, zero planes"),
+                    (a[:cut], tiles.v2r[:cut], trows[: cut * tau],
+                     f"{what}, int8, {cut} VSSs, {vpb} a block")):
                 self.same("pull_scatter_mma_ms_packed",
-                          k["fn"](v, planes_, fp, tiles.v2r, r, sigma=sigma),
-                          k["plain"](v, planes_, fp, tiles.v2r, r, sigma), w)
+                          k["fn"](v, planes_, fp, v2r_, r, sigma=sigma),
+                          k["plain"](v, planes_, fp, v2r_, r, sigma), w)
 
     # ------------------------------------------- phase 3b: multi-source --
     def ms_row(self, label, layout, kappa, levels, dt, lane_edges):
@@ -1129,6 +1152,8 @@ class Smoke:
         if d["ticks"] <= depth:
             fail(f"{rlabel}: {d['ticks']} ticks, fewer than the {depth} "
                  "levels of one lane")
+        self.sync()
+        kron_road = ops.launch_counts()  # (a)-(d): the full-size graphs
         self.serve_families()
         self.sync()
         counts = ops.launch_counts()
@@ -1136,41 +1161,51 @@ class Smoke:
         missing = [k for k in SERVE_PATH_KERNELS if counts[k] == 0]
         if missing:
             fail(f"kernels never launched on the serve path: {missing}")
-        return counts
+        return counts, kron_road
 
     # --------------------------- phase 6: serve kernels at production size --
-    def production_serve_kernels(self, bd, packed_srcs, counts):
-        """Equality, times and bounds of kernels 8-10 at the shapes of
-        ``bd``: the fused levels on the state two levels from the 256
-        sources, the queued pull over the bucket of the VSSs active one
-        level from them (the sparse frontier that Eq. (6) sends to the
-        queue)."""
-        np, torch = self.np, self.torch
+    def serve_inputs(self, bd, packed_srcs):
+        """The inputs of kernels 8-10 at the shapes of ``bd``: the visited
+        words one level from the 256 sources (``v1``) and the frontier
+        tiles of the next level (``fp``), for the fused levels; the tiles
+        one level from them (``fq``) and the bucket of the VSSs active
+        there (``qids``), the sparse frontier that Eq. (6) sends to the
+        queue; the MMA tiles."""
+        np = self.np
         runner = self.msbfs_packed.PackedMsBfs(bd, kernel="mma")
         v0 = runner.run(packed_srcs, max_levels=0)[0]
         v1 = runner.run(packed_srcs, max_levels=1)[0]
         v2 = runner.run(packed_srcs, max_levels=2)[0]
-        fp = self.msbfs.frontier_planes(bd, v2 & ~v1)
         fq = self.msbfs.frontier_planes(bd, v1 & ~v0)
-        tiles = runner._mma_tiles
-        n_v, tau = bd.masks.shape
-        s1, sigma, kw = fp.shape
-        rows = bd.row_ids.reshape(-1)
-        n_q = tiles.a_planes.shape[0]
+        s1 = fq.shape[0]
         active = (fq.reshape(s1, -1) != 0).any(dim=1).cpu().numpy()
         act = self.blest.expand_active_sets(bd.real_ptrs,
                                             active[: bd.num_sets])
         qids = np.full(self.blest.bucket_size(act.size), bd.num_vss,
                        np.int32)
         qids[: act.size] = act
-        qids = self.t(qids)
+        return dict(v1=v1, fp=self.msbfs.frontier_planes(bd, v2 & ~v1),
+                    fq=fq, qids=self.t(qids), tiles=runner._mma_tiles)
+
+    def production_serve_kernels(self, bd, packed_srcs, counts):
+        """Equality, times and bounds of kernels 8-10 at the shapes of
+        ``bd`` on :meth:`serve_inputs`, the lane runner's levels and the
+        unfused dense levels the fused kernels replace."""
+        torch = self.torch
+        x = self.serve_inputs(bd, packed_srcs)
+        v1, fp, fq, qids, tiles = (x["v1"], x["fp"], x["fq"], x["qids"],
+                                   x["tiles"])
+        n_v, tau = bd.masks.shape
+        s1, sigma, kw = fp.shape
+        rows = bd.row_ids.reshape(-1)
+        n_q = tiles.a_planes.shape[0]
         b_q = qids.numel()
         parents = int(torch.unique(bd.v2r.index_select(0, qids)).numel())
-        vbytes = 2 * 4 * v2.numel()
-        cells = {
+        vbytes = 2 * 4 * v1.numel()
+        cells = {  # the fused kernels read int32 rows
             "pull_scatter_ms_packed": (
-                (v1, bd.masks, fp, bd.v2r, rows),
-                n_v * tau + 8 * n_v * tau + 4 * s1 * sigma * kw + 4 * n_v
+                (v1, bd.masks, fp, bd.v2r, bd.rows32),
+                n_v * tau + 4 * n_v * tau + 4 * s1 * sigma * kw + 4 * n_v
                 + vbytes,
                 2 * n_v * tau * sigma * kw + n_v * tau * kw, ALU_OPS_PER_S),
             "pull_ms_packed_queued": (
@@ -1179,8 +1214,8 @@ class Smoke:
                 + 4 * b_q * tau * kw,
                 2 * b_q * tau * sigma * kw, ALU_OPS_PER_S),
             "pull_scatter_mma_ms_packed": (
-                (v1, tiles.a_planes, fp, tiles.v2r, tiles.rows),
-                n_q * tau * sigma + 8 * n_q * tau + 4 * s1 * sigma * kw
+                (v1, tiles.a_planes, fp, tiles.v2r, bd.rows32),
+                n_q * tau * sigma + 4 * n_q * tau + 4 * s1 * sigma * kw
                 + 4 * n_q + vbytes,
                 2 * n_q * tau * sigma * kw * 32, INT8_MMA_OPS_PER_S),
         }
@@ -1301,12 +1336,16 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
     log(f"preprocessed: {b.stats}, N_v={b.bd.num_vss}")
     road_label = f"road-{road_scale}"
     road_sources = [0, int(smoke.sources(g, 1, seed=2)[0])]
+    ops.reset_launch_counts()
     smoke.check_bfs(b, g, road_sources, [("fused", None, True),
                                          ("bucketed", None, True)],
                     road_label)
+    smoke.ms_road(b, g, road_label)
+    smoke.sync()
+    road_counts = ops.launch_counts()
+    log(f"road path launches: {road_counts}")
     smoke.time_bfs(b, g, road_sources, road_label)
     smoke.level_cost(b, 0, road_label, depth=3)
-    smoke.ms_road(b, g, road_label)
     road = (b, g, road_label, road_sources)
     del b, g
 
@@ -1320,10 +1359,16 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
         log(f"{family}-10 ok ({b.stats.algorithm}, lazy={b.stats.lazy})")
 
     log("phase 6: the serve engine")
-    serve_counts = smoke.serve_path(kron, road)
+    serve_counts, serve_kron_road = smoke.serve_path(kron, road)
     kernel_rows += smoke.production_serve_kernels(kron[0].bd, packed_srcs,
                                                   serve_counts)
     smoke.sync()
+    # the launches of the full-size graphs' paths alone (phases 3, 3b, 4
+    # and the engines on kron and road), without the scale-10 families
+    for row in kernel_rows:
+        row["launches_kron_road"] = sum(
+            c[row["name"]] for c in (counts, ms_counts, road_counts,
+                                     serve_kron_road))
     return kernel_rows
 
 

@@ -25,6 +25,7 @@ CUDA kernels for a CUDA :class:`BvssDevice`, plain PyTorch on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import NamedTuple
 
@@ -86,6 +87,13 @@ class BvssDevice:
     @property
     def device(self) -> torch.device:
         return self.masks.device
+
+    @functools.cached_property
+    def rows32(self) -> torch.Tensor:
+        """``row_ids`` flattened as int32 (n_ext < 2**31), made on first
+        use: the scatter rows of the serve engine's fused dense kernels,
+        which read 4 bytes a slot where ``row_ids`` has 8."""
+        return self.row_ids.reshape(-1).to(torch.int32)
 
 
 def to_device(b: Bvss, *, device=None) -> BvssDevice:

@@ -56,6 +56,7 @@ SIGNATURES = {
             [_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P], _INT),
         "blest_pull_ms_packed_queued": (
             [_P, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _P], _INT),
+        "blest_fused_vss_per_block": ([_INT, _INT, _INT], _INT),
         "blest_error_string": ([_INT], ctypes.c_char_p),
     },
 }

@@ -1,7 +1,8 @@
 // One packed output word of the multi-source pulls, shared by the kernels of
 // blest_ms.cu and blest_serve.cu.  A word holds 32 lanes (BFSs) of one slot
 // (slice) of a VSS; fq points at the parent slice set's (sigma, kw) frontier
-// words, w is the word's index in [0, kw).  sigma <= 8 (masks are bytes).
+// words (row stride kw), w is the word's index in [0, kw).  sigma <= 8
+// (masks are bytes).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,48 +21,76 @@ __device__ __forceinline__ uint32_t or_pull_word(unsigned m,
   return acc;
 }
 
+// A slot's int8 MMA weights aj[0..sigma) as the bytes of one 64-bit row
+// (weight b in byte b; bytes past sigma are 0).  sigma == 8 reads the row in
+// one aligned 8-byte load.
+__device__ __forceinline__ uint64_t plane_row(const int8_t* aj, int sigma) {
+  if (sigma == 8 && (reinterpret_cast<uintptr_t>(aj) & 7u) == 0) {
+    return *reinterpret_cast<const uint64_t*>(aj);
+  }
+  uint64_t row = 0;
+  for (int b = 0; b < sigma; ++b) {
+    row |= static_cast<uint64_t>(static_cast<uint8_t>(aj[b])) << (8 * b);
+  }
+  return row;
+}
+
+__device__ __forceinline__ int weight(uint64_t row, int b) {
+  return static_cast<int8_t>(row >> (8 * b));
+}
+
+// Bit b set where weight b is positive (a nonzero byte with its sign bit
+// clear; the multiply gathers bit 7 of each byte into the top byte), and
+// whether the row has a negative weight.
+__device__ __forceinline__ unsigned positive_bits(uint64_t row) {
+  constexpr uint64_t kLow7 = 0x7f7f7f7f7f7f7f7full;
+  const uint64_t nonzero = (((row & kLow7) + kLow7) | row) & ~kLow7;
+  const uint64_t pos = nonzero & ~row;
+  return static_cast<unsigned>(((pos >> 7) * 0x0102040810204080ull) >> 56);
+}
+
+__device__ __forceinline__ bool has_negative(uint64_t row) {
+  return (row & 0x8080808080808080ull) != 0;
+}
+
+// The exact binary-MMA word of a row with any int8 weights, from the
+// frontier words fw[b] of its planes (fw[b] unread where weight b is 0):
+//   count[l] = sum_b a[b] * bit_l(fw[b]);   word = sum_l (count[l] > 0) << l
+__device__ __forceinline__ uint32_t count_word(uint64_t row,
+                                               const uint32_t (&fw)[8]) {
+  uint32_t word = 0;
+  for (int l = 0; l < 32; ++l) {
+    int count = 0;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      count += weight(row, b) * static_cast<int>((fw[b] >> l) & 1u);
+    }
+    word |= static_cast<uint32_t>(count > 0) << l;
+  }
+  return word;
+}
+
 // The binary-MMA pull of kernels/pull_mma_ms_packed.py, for one slot with
 // int8 weights aj[0..sigma):
 //   count[l] = sum_b aj[b] * bit_l(fq[b, w]);   word = sum_l (count[l] > 0) << l
 // When no weight is negative, count[l] > 0 exactly when some b with
 // aj[b] > 0 has bit l set, so the word is the OR of those words (one pass);
 // a negative weight runs the 32-lane count loop.  Both are exact on any int8
-// weights.  Zero weights read no frontier word.  The unrolled loops keep a
-// and fw in registers (weights past sigma are 0); sigma == 8 reads the row
-// in one aligned 8-byte load.
+// weights.  Zero weights read no frontier word.  The unrolled loop keeps a
+// and fw in registers (weights past sigma are 0).
 __device__ __forceinline__ uint32_t mma_word(const int8_t* aj, int sigma,
                                              const uint32_t* fq, int kw,
                                              int w) {
-  uint64_t row = 0;
-  if (sigma == 8 && (reinterpret_cast<uintptr_t>(aj) & 7u) == 0) {
-    row = *reinterpret_cast<const uint64_t*>(aj);
-  } else {
-    for (int b = 0; b < sigma; ++b) {
-      row |= static_cast<uint64_t>(static_cast<uint8_t>(aj[b])) << (8 * b);
-    }
-  }
-  int a[8];
+  const uint64_t row = plane_row(aj, sigma);
   uint32_t fw[8];
   uint32_t pos_or = 0;
-  bool negative = false;
 #pragma unroll
   for (int b = 0; b < 8; ++b) {
-    a[b] = static_cast<int8_t>(row >> (8 * b));
-    fw[b] = a[b] ? fq[b * kw + w] : 0u;
-    if (a[b] > 0) pos_or |= fw[b];
-    negative |= a[b] < 0;
+    const int a = weight(row, b);
+    fw[b] = a ? fq[b * kw + w] : 0u;
+    if (a > 0) pos_or |= fw[b];
   }
-  if (!negative) return pos_or;
-  uint32_t word = 0;
-  for (int l = 0; l < 32; ++l) {
-    int count = 0;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      count += a[b] * static_cast<int>((fw[b] >> l) & 1u);
-    }
-    word |= static_cast<uint32_t>(count > 0) << l;
-  }
-  return word;
+  return has_negative(row) ? count_word(row, fw) : pos_or;
 }
 
 }  // namespace blest

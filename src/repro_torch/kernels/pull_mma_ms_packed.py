@@ -184,7 +184,8 @@ def pull_scatter_mma_ms_packed(v: torch.Tensor, a_planes: torch.Tensor,
     a_planes: (n_q_pad, tau, sigma) int8 — :func:`prep_mma_tiles`
     f_packed: (num_sets_ext, sigma, kw) int32 frontier words
     v2r:      (n_q_pad,) int32 — sentinel-padded parent sets
-    rows:     (n_q_pad * tau,) int64 — sentinel-padded rows
+    rows:     (n_q_pad * tau,) int32 — sentinel-padded rows
+              (``BvssDevice.rows32`` where the tiles add no VSS padding)
     """
     _check(a_planes, torch.int8, 3, "a_planes")
     n_q, tau, sig = a_planes.shape
@@ -198,8 +199,7 @@ def pull_scatter_mma_ms_packed(v: torch.Tensor, a_planes: torch.Tensor,
         _build.launch("blest_serve", "blest_pull_scatter_mma_ms_packed",
                       v.device, out.data_ptr(), a_planes.data_ptr(),
                       f_packed.data_ptr(), v2r.data_ptr(), rows.data_ptr(),
-                      rows.numel(), tau, sigma, kw,
-                      counter=pull_scatter_mma_ms_packed)
+                      n_q, tau, sigma, kw, counter=pull_scatter_mma_ms_packed)
     return out
 
 

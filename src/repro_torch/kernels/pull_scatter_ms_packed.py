@@ -13,8 +13,9 @@ order; the CUDA kernel ORs each word in with ``atomicOr`` instead, exact in
 any order.  The result is a new tensor, never ``v`` itself: the serve engine
 reads the old ``v`` for the level's diff, and its lane runner shares one
 initial state across sessions.  Words are ``torch.int32`` bit patterns;
-``rows`` is int64 (the port's ``row_ids``).  :func:`pull_scatter_ms_packed`
-takes CUDA tensors only and counts its launches in
+``rows`` is int32 (``BvssDevice.rows32``, the port's int64 ``row_ids`` as
+int32).  :func:`pull_scatter_ms_packed` takes CUDA tensors only and counts
+its launches in
 ``pull_scatter_ms_packed.launches``; :mod:`repro_torch.kernels.ops` sends
 CPU tensors to :func:`pull_scatter_ms_packed_ref`.
 """
@@ -32,12 +33,12 @@ from repro_torch.kernels.scatter_or import scatter_or_ref
 def check_scatter(v: torch.Tensor, rows: torch.Tensor, t: int,
                   f: torch.Tensor) -> None:
     """Checks the visited words ``v`` (n_rows, kw) int32 and the scatter
-    rows ``rows`` (t,) int64 of a fused level over ``t`` slots whose
+    rows ``rows`` (t,) int32 of a fused level over ``t`` slots whose
     frontier words ``f`` are (num_sets, sigma, kw).  Every row must lie in
     [0, n_rows): the kernels read ``rows`` unchecked, as the pulls read
     ``v2r``."""
     _check(v, torch.int32, 2, "v")
-    _check(rows, torch.int64, 1, "rows")
+    _check(rows, torch.int32, 1, "rows")
     if rows.shape != (t,) or f.shape[2] != v.shape[1] or not (
             v.device == rows.device == f.device):
         raise ValueError(f"v {tuple(v.shape)}, rows {tuple(rows.shape)} and "
@@ -55,7 +56,7 @@ def pull_scatter_ms_packed(v: torch.Tensor, masks: torch.Tensor,
     masks:    (N_q, tau) uint8
     f_packed: (num_sets_ext, sigma, kw) int32 frontier words
     v2r:      (N_q,) int32 parent slice set of each VSS
-    rows:     (N_q * tau,) int64 scatter rows (``row_ids`` flattened)
+    rows:     (N_q * tau,) int32 scatter rows (``BvssDevice.rows32``)
     """
     _check(masks, torch.uint8, 2, "masks")
     n_q, tau = masks.shape
@@ -66,12 +67,20 @@ def pull_scatter_ms_packed(v: torch.Tensor, masks: torch.Tensor,
     if rows.numel() and kw:
         _build.launch("blest_serve", "blest_pull_scatter_ms_packed", v.device,
                       out.data_ptr(), masks.data_ptr(), f_packed.data_ptr(),
-                      v2r.data_ptr(), rows.data_ptr(), rows.numel(), tau,
-                      sigma, kw, counter=pull_scatter_ms_packed)
+                      v2r.data_ptr(), rows.data_ptr(), n_q, tau, sigma, kw,
+                      counter=pull_scatter_ms_packed)
     return out
 
 
 pull_scatter_ms_packed.launches = 0
+
+
+def fused_vss_per_block(tau: int, sigma: int, kw: int) -> int:
+    """The run of VSSs a block of either fused kernel takes (0 where one
+    frontier tile does not fit a block).  The launch geometry lives in
+    ``csrc/blest_serve.cu`` alone, so this asks the built library."""
+    return _build.library("blest_serve").blest_fused_vss_per_block(
+        tau, sigma, kw)
 
 
 def pull_scatter_ms_packed_ref(v: torch.Tensor, masks: torch.Tensor,

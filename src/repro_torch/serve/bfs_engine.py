@@ -296,7 +296,7 @@ class GraphArtifacts:
     perm: np.ndarray        # old id -> new id (pi^{-1})
     reorder: reorder_mod.ReorderResult
     switching: switching_mod.SwitchingDecision | None
-    device_bytes: int       # the port's BVSS tensors on the device
+    device_bytes: int       # the port's BVSS tensors on the device, rows32 too
     aux_bytes: int          # perm, real_ptrs, probe verdict, MMA tiles
     # MMA-layout tile prep (DESIGN.md §13.1), counted in aux_bytes (the
     # eviction budget must see layout-auxiliary device tensors too)
@@ -365,7 +365,8 @@ def build_artifacts(name: str, g: Graph, *, reorder: str | None = None,
     return GraphArtifacts(
         name=name, graph=g, bvss=b, bd=bd, perm=perm, reorder=rr,
         switching=sw,
-        device_bytes=_nbytes(bd.masks, bd.masks_packed, bd.row_ids, bd.v2r),
+        device_bytes=_nbytes(bd.masks, bd.masks_packed, bd.row_ids, bd.v2r,
+                             bd.rows32),
         aux_bytes=aux_bytes, mma=tiles, degraded=degraded)
 
 
@@ -848,7 +849,7 @@ class _LaneRunner:
                        if self._mma else None)
         self._real_ptrs = bd.real_ptrs
         self._pad_vss = bd.num_vss  # a guaranteed padding VSS id
-        self._rows_flat = bd.row_ids.reshape(-1)  # fused-kernel scatter rows
+        self._rows_flat = bd.row_ids.reshape(-1)  # index_reduce_ (byteplane)
         self._lanes = torch.arange(kappa, device=bd.device)
         self._init_state: LaneState | None = None
 
@@ -888,9 +889,9 @@ class _LaneRunner:
         if self._mma:
             t = self._tiles
             return ops.pull_scatter_mma_ms_packed(v, t.a_planes, f, t.v2r,
-                                                  t.rows, sigma=bd.sigma)
+                                                  bd.rows32, sigma=bd.sigma)
         return ops.pull_scatter_ms_packed(v, bd.masks, f, bd.v2r,
-                                          self._rows_flat, sigma=bd.sigma)
+                                          bd.rows32, sigma=bd.sigma)
 
     def _pull_scatter_queued(self, v, f, qids):
         """Frontier-compacted pull+scatter over the active list only

@@ -10,10 +10,15 @@ reference on ``prep_mma_tiles``'s 0/1 planes only: on negative weights with
 a duplicate row that reference and ``repro``'s own kernel disagree, and the
 port follows the kernel (a pinned case below).  Outputs are bits: equality
 is exact (tolerance 0).  The CUDA kernels run only on a GPU; chip_smoke.py
-holds them against these plain versions there.
+holds them against these plain versions there.  What of them runs here:
+a model of the fused kernels' thread-to-(slot, word) map, on the launch
+geometry that ``csrc/blest_serve.cu`` states, and the int32 scatter rows
+(``BvssDevice.rows32``) the serve engine hands them.
 """
 from __future__ import annotations
 
+import pathlib
+import re
 import threading
 
 import numpy as np
@@ -29,10 +34,12 @@ from repro.kernels import pull_mma_ms_packed as j_mma  # noqa: E402
 from repro.kernels import pull_ms_packed_queued as j_q  # noqa: E402
 from repro.kernels import pull_scatter_ms_packed as j_ps  # noqa: E402
 from repro_torch.core import blest  # noqa: E402
+from repro_torch.data import graphs  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import pull_mma_ms_packed as mma  # noqa: E402
 from repro_torch.kernels import pull_ms_packed_queued as t_q  # noqa: E402
 from repro_torch.kernels import pull_scatter_ms_packed as t_ps  # noqa: E402
+from repro_torch.serve import bfs_engine as t_engine  # noqa: E402
 from test_torch_ms_kernels import (  # noqa: E402
     KAPPAS_PACKED, _eq, _planes, _rand_bd, _rand_words, _t, _u32)
 
@@ -269,3 +276,161 @@ def test_library_hash_covers_shared_header(monkeypatch, tmp_path):
     before = _build.library_path("blest_serve")
     header.write_text("// two\n")
     assert _build.library_path("blest_serve") != before
+
+
+# ---------------------------------------------------------------------------
+# the fused kernels' thread map and int32 rows
+# ---------------------------------------------------------------------------
+
+_SERVE_CU = (pathlib.Path(t_ps.__file__).parent / "csrc"
+             / "blest_serve.cu").read_text()
+# csrc/blest_serve.cu's numeric constexprs (kFusedThreads, kChunk, ...)
+_CU = {name: int(np.prod([int(x) for x in expr.split("*")]))
+       for name, expr in re.findall(r"constexpr int (\w+) = ([\d *]+);",
+                                    _SERVE_CU)}
+
+
+def _vss_per_block(tau, sigma, kw):
+    """fused_vss_per_block of csrc/blest_serve.cu, on its constants."""
+    kwp = -(-kw // _CU["kChunk"]) * _CU["kChunk"]
+    tile = 4 * sigma * kwp
+    if tile > _CU["kFusedSmem"]:
+        return 0
+    return min(-(-_CU["kFusedSlots"] // tau), _CU["kFusedSmem"] // tile)
+
+
+def _fused_cover(n_q, tau, sigma, kw):
+    """How often the fused kernels OR into each (slot, word) when every
+    slot is live: a block per run of VSSs, its threads stepping (ql, j)
+    over the run's slots kFusedThreads at a time, each warp compacting its
+    live lanes and scattering each chunk of kChunk words as (slot, pair)
+    items where kw is even, (slot, word) items where it is odd, on a power
+    of two of lanes a slot."""
+    vpb = _vss_per_block(tau, sigma, kw)
+    nt, chunk = _CU["kFusedThreads"], _CU["kChunk"]
+    pairs = kw % 2 == 0
+    kwp = -(-kw // chunk) * chunk
+    hits = np.zeros((n_q * tau, kw), np.int64)
+    tid = np.arange(nt)
+    for q0 in range(0, n_q, vpb):
+        nv = min(vpb, n_q - q0)
+        slots = nv * tau
+        ql, j = tid // tau, tid % tau
+        for base in range(0, slots, nt):
+            s = base + tid
+            assert ((ql * tau + j) == s).all()  # stepped, never divided
+            for warp in range(nt // 32):
+                live = s[warp * 32:(warp + 1) * 32]
+                live = live[live < slots]  # pos = rank among live lanes
+                for c in range(0, kwp, chunk):
+                    cw = min(chunk, kw - c)
+                    items = cw // 2 if pairs else cw
+                    sh = (items - 1).bit_length()
+                    assert items <= 1 << sh < 2 * items or items == 1
+                    it = np.arange(live.size << sh)
+                    sl, k = it >> sh, it & ((1 << sh) - 1)
+                    keep = k < items
+                    w = c + (2 * k if pairs else k)
+                    for d in range(2 if pairs else 1):
+                        np.add.at(hits, (q0 * tau + live[sl[keep]],
+                                         w[keep] + d), 1)
+            ql, j = ql + nt // tau, j + nt % tau
+            ql, j = np.where(j >= tau, ql + 1, ql), np.where(j >= tau,
+                                                            j - tau, j)
+    return vpb, hits
+
+
+@pytest.mark.parametrize("sigma,tau", [(8, 1), (8, 2), (4, 2), (2, 4),
+                                       (2, 1), (4, 4), (8, 4), (8, 128)])
+@pytest.mark.parametrize("kappa", [32, 64, 96, 256])
+def test_fused_geometry_covers_every_slot_word_once(sigma, tau, kappa):
+    """Every pool shape (sigma, tau) at every pool kappa, over VSS counts of
+    one, a ragged single run, a ragged last run and whole runs: each
+    (slot, word) is ORed in exactly once."""
+    kw = kappa // 32
+    vpb = _vss_per_block(tau, sigma, kw)
+    assert vpb >= 1
+    for n_q in sorted({1, max(1, vpb - 1), vpb + 3, 2 * vpb}):
+        _, hits = _fused_cover(n_q, tau, sigma, kw)
+        assert (hits == 1).all(), (n_q, np.unique(hits))
+
+
+def test_fused_geometry_at_production_shapes():
+    """kron-22's shapes (tau = 128, sigma = 8, kappa = 256): 32 VSSs (4,096
+    slots) a block, 25,200 blocks; the tiles of a run and the warps'
+    staging fit the 48 KB a block gets without opting in; a kappa whose
+    tile would not fit a block gets no run (the launcher refuses it)."""
+    assert _vss_per_block(128, 8, 8) == 32
+    assert -(-806_384 // 32) == 25_200
+    warps, chunk = _CU["kFusedThreads"] // 32, _CU["kChunk"]
+    assert _CU["kFusedThreads"] % 32 == 0 and chunk % 4 == 0
+    staging = warps * 32 * (4 * chunk + 4)  # stage words + stage_row
+    assert staging == 9_216 and _CU["kFusedSmem"] + staging <= 48 * 1024
+    assert _vss_per_block(128, 8, 1024) == 1
+    assert _vss_per_block(128, 8, 1025) == 0
+
+
+def test_check_scatter_takes_int32_rows(monkeypatch):
+    """The fused kernels read int32 rows: check_scatter refuses the int64
+    row_ids and takes their int32 copy (device check lifted, no card)."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    v = torch.zeros((16, 2), dtype=torch.int32)
+    f = torch.zeros((3, 8, 2), dtype=torch.int32)
+    rows = torch.arange(12) % 16
+    with pytest.raises(ValueError, match="torch.int32"):
+        t_ps.check_scatter(v, rows, 12, f)
+    t_ps.check_scatter(v, rows.to(torch.int32), 12, f)
+    with pytest.raises(ValueError, match="do not match"):
+        t_ps.check_scatter(v, rows[:11].to(torch.int32), 12, f)
+
+
+def _capture_rows(monkeypatch):
+    """Record the rows each fused dense level is handed (then run it)."""
+    seen = []
+    for fn in ("pull_scatter_ms_packed", "pull_scatter_mma_ms_packed"):
+        def spy(v, lead, f, v2r, rows, real=getattr(ops, fn), **kw):
+            seen.append(rows)
+            return real(v, lead, f, v2r, rows, **kw)
+        monkeypatch.setattr(ops, fn, spy)
+    return seen
+
+
+@pytest.mark.parametrize("family", sorted(graphs.FAMILIES))
+def test_lane_runner_int32_rows_equal_row_ids(family, monkeypatch):
+    """On every family at scale 10: bd.rows32 is made once, equals
+    bd.row_ids and the MMA tiles' rows, is counted in the artifact's
+    device_bytes, and both lane-runner layouts scatter through it."""
+    g = graphs.make(family, 10)
+    art = t_engine.build_artifacts(family, g, mma_tiles=True, device="cpu")
+    bd = art.bd
+    rows = bd.rows32
+    assert rows.dtype == torch.int32 and bd.rows32 is rows
+    _eq(rows, bd.row_ids.reshape(-1))
+    _eq(rows, art.mma.rows)
+    assert art.device_bytes == 4 * rows.numel() + sum(
+        t.numel() * t.element_size()
+        for t in (bd.masks, bd.masks_packed, bd.row_ids, bd.v2r)
+        if t is not None)
+    seen = _capture_rows(monkeypatch)
+    for layout in ("packed", "mma"):
+        r = t_engine._LaneRunner(bd, 32, layout=layout, mma_tiles=art.mma)
+        st = r.init_state()
+        r._pull_scatter(st.v, st.f)
+    assert len(seen) == 2 and all(x is rows for x in seen)
+
+
+def test_engine_runner_shares_artifact_rows(monkeypatch):
+    """The engine's runner, adopted from the probe or built, scatters
+    through its artifact's int32 rows."""
+    seen = _capture_rows(monkeypatch)
+    for layout, switching in (("packed", "off"), ("auto", "auto")):
+        eng = t_engine.BfsEngine(kappa=32, layout=layout,
+                                 switching=switching, device="cpu")
+        eng.register_graph("g", graphs.make("kron", 8))
+        t = eng.submit("g", 0)
+        seen.clear()
+        eng.run()
+        assert t.state == "DONE"
+        art = eng.cache.get("g")
+        assert eng._runners["g"].bd is art.bd
+        assert seen and all(x is art.bd.rows32 for x in seen)
