@@ -11,11 +11,16 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
 2. Each kernel against its plain PyTorch version on the card, exact
    equality, over the shape pool of tests/test_kernel_parity.py (random
    graphs, sigma in {2,4,8}, tau in {1,2,4}, ragged n, empty frontiers) and
-   tau in {4,128} for the packed layouts; kappa in {8,32,48,3} for the
-   byteplane pull and {32,64,96,256} for the packed kernels (odd and even
-   word counts), all-duplicate rows for the scatter, random int8 planes
-   (negative weights) for the MMA pull, and a ragged VSS count that the MMA
-   pull must refuse.  The serve kernels over the same pool: the fused dense
+   tau in {4,128} for the packed layouts; kappa in {8,32,48,3,64,16} for
+   the byteplane pull (any bytes in alternate rounds, 0/1 planes in the
+   others, some with one byte >= 128: a negative int8 sends its run of
+   the kernel to the exact sum) and {32,64,96,256} for the packed kernels
+   (odd and even word counts); for the scatter all-duplicate rows,
+   all-zero marks, a suffix from element 1 (marks off 16-byte alignment
+   where kw is odd or 2) and a prefix whose word count no warp's run
+   divides; random int8 planes (negative
+   weights) for the MMA pull, and a ragged VSS count that the MMA pull
+   must refuse.  The serve kernels over the same pool: the fused dense
    levels with duplicate and all-on-one rows, all-zero masks and a VSS
    count that is no multiple of the VSSs a block takes (the MMA form also
    on random int8 planes), and the queued pull over empty, full and random
@@ -44,7 +49,9 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    dispatch (RCM), fused and bucketed runs equal to the oracle; one batch of
    32 sources through ``Blest.msbfs`` and ``PackedMsBfs(kernel="gather")``,
    equal in far and reach, two lanes equal to ``Blest.bfs`` (launches
-   counted from just before the runs to just after); then their times.
+   counted from just before the runs to just after); then their times, and
+   ``pull_ms`` and ``scatter_or`` at this graph's shapes, ROAD_LEVEL levels
+   from those sources: equality with their plain versions, times, bounds.
 5. Every family of ``data/graphs.FAMILIES`` at scale 10 with automatic
    dispatch, all 8 combinations equal to the oracle; ``Blest.closeness``
    over all sources (fused and bucketed, both normalisations) against
@@ -73,7 +80,9 @@ nvidia-smi gives them), one JSON line ``{"kernels": [...]}`` (launches on the
 main path; ``launches_kron_road``, the launches of the kron and road paths
 of phases 3, 3b, 4 and 6 together, without the scale-10 families; ms per
 launch, plain version's ms, the bound and what sets it, the library call's
-ms), one JSON line ``{"bfs": [...]}`` (ms, edges/s and
+ms; for ``pull_ms`` and ``scatter_or`` also ``road``, their ms, plain ms
+and bound at road's shapes ROAD_LEVEL levels in), one JSON line
+``{"bfs": [...]}`` (ms, edges/s and
 depth per BFS; per-stage ms of one dense level) and one JSON line
 ``{"msbfs": [...]}`` (per multi-source run: graph, layout, kappa, levels,
 ms, lane-edges/s; per-stage ms of one dense multi-source level) and one
@@ -118,11 +127,12 @@ POOL_CASES = 48
 KRON_SOURCES = 4
 COMBOS = [(mode, lazy, packed) for mode in ("fused", "bucketed")
           for lazy in (True, False) for packed in (True, False)]
-MS_KAPPAS = (8, 32, 48, 3)   # byteplane lanes need no word alignment
+MS_KAPPAS = (8, 32, 48, 3, 64, 16)  # byteplane lanes need no alignment
 PACKED_KAPPAS = (32, 64, 96, 256)  # kw 1, 2, 3, 8: 32-bit tails, 64-bit pairs
 MS_SOURCES = 64              # kron: the byteplane batch
 PACKED_SOURCES = 256         # kron: the packed batch, kw = 8
 ROAD_SOURCES = 32
+ROAD_LEVEL = 1000            # road: the kernels' state, mid-run
 CHUNK_VSS = 16384            # plain versions at full size run in chunks
 SS_KERNELS = ("pull_ss", "pull_ss_packed", "frontier_sweep")
 MS_KERNELS = ("pull_ms", "pull_ms_packed", "scatter_or", "pull_mma_ms_packed")
@@ -228,6 +238,7 @@ class Smoke:
         self.bfs_rows: list[dict] = []
         self.ms_rows: list[dict] = []
         self.serve_rows: list[dict] = []
+        self.road_kernels: dict = {}  # name -> road-shape time and bound
         self.oracle: dict = {}  # (graph label, source) -> oracle levels
         self.graphs_n: dict = {}  # graph label -> n
 
@@ -466,8 +477,11 @@ class Smoke:
                 g, self.BvssConfig(sigma=sigma, tau=tau)), device=self.dev)
             what = f"ms pool case {case} (n={n}, sigma={sigma}, tau={tau})"
             kappa = MS_KAPPAS[case % len(MS_KAPPAS)]
-            fv = rng.integers(0, 256 if case % 4 == 0 else 2,
-                              (bd.n_ext, kappa)).astype(np.uint8)
+            hi = 256 if case // len(MS_KAPPAS) % 2 == 0 else 2
+            fv = rng.integers(0, hi, (bd.n_ext, kappa)).astype(np.uint8)
+            if hi == 2 and rng.random() < 0.5:  # one negative int8
+                fv[rng.integers(bd.n_ext), rng.integers(kappa)] = \
+                    rng.integers(128, 256)
             if rng.random() < 0.15:
                 fv[:] = 0  # an empty frontier
             f = planes(bd, self.t(fv))
@@ -480,17 +494,24 @@ class Smoke:
             marks = k["fn"](bd.masks, fp, bd.v2r, sigma=sigma)
             self.same("pull_ms_packed", marks,
                       k["plain"](bd.masks, fp, bd.v2r, sigma), what)
-            rows = bd.row_ids.reshape(-1)
+            rows = bd.rows32
             dest = self.rand_words(rng, (bd.n_ext, kw), empty=0.3)
             k = self.kernels["scatter_or"]
             mk = marks.reshape(-1, kw)
-            self.same("scatter_or", k["fn"](dest, rows, mk),
-                      k["plain"](dest, rows, mk), what)
-            # all elements on one row (the REDG case), random marks
-            rows = torch.full_like(rows, int(rng.integers(bd.n_ext)))
-            mk = self.rand_words(rng, (rows.numel(), kw), empty=0)
-            self.same("scatter_or", k["fn"](dest, rows, mk),
-                      k["plain"](dest, rows, mk), f"{what}, one row")
+            t = rows.numel()
+            # a prefix whose word count no warp's run (128 words) divides
+            cut = next((c for c in range(t, 0, -1) if c * kw % 128), t)
+            one_row = torch.full_like(rows, int(rng.integers(bd.n_ext)))
+            for r, m_, w in (
+                    (rows, mk, what),
+                    # all elements on one row (the REDG case), random marks
+                    (one_row, self.rand_words(rng, (t, kw), empty=0),
+                     f"{what}, one row"),
+                    (rows, torch.zeros_like(mk), f"{what}, zero marks"),
+                    (rows[1:], mk[1:], f"{what}, {t - 1} elements from 1"),
+                    (rows[:cut], mk[:cut], f"{what}, {cut} elements")):
+                self.same("scatter_or", k["fn"](dest, r, m_),
+                          k["plain"](dest, r, m_), w)
             block = (8, 16)[case % 2]
             tiles = mma.prep_mma_tiles(bd, block=block)
             k = self.kernels["pull_mma_ms_packed"]
@@ -740,22 +761,16 @@ class Smoke:
         s1, sigma, kappa = st.f_planes.shape
         kw = fp.shape[2]
         marks = self.ops.pull_ms_packed(bd.masks, fp, bd.v2r, sigma=sigma)
-        rows = bd.row_ids.reshape(-1)
+        rows = bd.rows32
         n_q = tiles.a_planes.shape[0]
         # (args, bytes moved once, operations, their peak rate)
         cells = {
-            "pull_ms": ((bd.masks, st.f_planes, bd.v2r),
-                        n_v * tau + s1 * sigma * kappa + 4 * n_v
-                        + n_v * tau * kappa,
-                        2 * n_v * tau * sigma * kappa, INT8_MMA_OPS_PER_S),
+            "pull_ms": self.pull_ms_cell(bd, st.f_planes),
             "pull_ms_packed": ((bd.masks, fp, bd.v2r),
                                n_v * tau + 4 * s1 * sigma * kw + 4 * n_v
                                + 4 * n_v * tau * kw,
                                2 * n_v * tau * sigma * kw, ALU_OPS_PER_S),
-            "scatter_or": ((v2, rows, marks.reshape(-1, kw)),
-                           8 * rows.numel() + 4 * rows.numel() * kw
-                           + 2 * 4 * v2.numel(),
-                           rows.numel() * kw, ALU_OPS_PER_S),
+            "scatter_or": self.scatter_cell(v2, rows, marks.reshape(-1, kw)),
             "pull_mma_ms_packed": ((tiles.a_planes, fp, tiles.v2r),
                                    n_q * tau * sigma + 4 * s1 * sigma * kw
                                    + 4 * n_q + 4 * n_q * tau * kw,
@@ -768,29 +783,79 @@ class Smoke:
             n = args[0].shape[0] if name != "scatter_or" else n_v
             what = f"production shapes (N_v={n_v}, tau={tau}, " \
                    f"kappa={kappa if name == 'pull_ms' else 32 * kw})"
-            self.same(name, k["fn"](*args), self.chunked(name, args, n), what)
-            ms_ = self.time_ms(lambda: k["fn"](*args))
-            plain_ms = self.time_ms(lambda: self.chunked(name, args, n),
-                                    iters=2, warmup=1)
+            row = self.kernel_row(name, args, nbytes, nops, peak, n, what)
             lib_ms = None
             if name in ("pull_ms", "pull_mma_ms_packed"):
                 lib_ms = self.bmm_ms(args[0] if name == "pull_mma_ms_packed"
                                      else None, bd, args[1], args[2], name)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = nops / peak * 1e3
+                log(f"{name}: library (torch.bmm) {lib_ms:.4f} ms")
             rows_out.append({
                 "name": name, "route": "cuda", "source": k["source"],
                 "replaces": k["replaces"], "launches": counts[name],
-                "max_abs_err": k["max_abs_err"], "ms": ms_,
-                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "max_abs_err": k["max_abs_err"], **row,
                 "library_ms": lib_ms,
             })
-            log(f"{name}: {ms_:.4f} ms (plain {plain_ms:.3f}, library "
-                f"{lib_ms}, bound {max(t_bytes, t_ops):.4f} from {nbytes} "
-                f"bytes, {nops} operations) at {what}")
         self.ms_level_cost(bd, st, runner, v2, fp)
         return rows_out
+
+    def pull_ms_cell(self, bd, f_planes):
+        """pull_ms's (args, bytes moved once, operations, their peak rate)
+        on the byteplane frontier ``f_planes``: masks, tiles and v2r read,
+        marks written; the product's operations at the int8 MMA rate."""
+        n_v, tau = bd.masks.shape
+        s1, sigma, kappa = f_planes.shape
+        return ((bd.masks, f_planes, bd.v2r),
+                n_v * tau + s1 * sigma * kappa + 4 * n_v + n_v * tau * kappa,
+                2 * n_v * tau * sigma * kappa, INT8_MMA_OPS_PER_S)
+
+    def scatter_cell(self, v, rows, marks):
+        """scatter_or's (args, bytes, operations, rate) on int32 ``rows``:
+        the marks read, the rows of the elements with a nonzero word read
+        (the others load none), ``v`` read and written."""
+        live = int((marks != 0).any(dim=1).sum())
+        return ((v, rows, marks),
+                4 * marks.numel() + 4 * live + 2 * 4 * v.numel(),
+                marks.numel(), ALU_OPS_PER_S)
+
+    def kernel_row(self, name, args, nbytes, nops, peak, n, what):
+        """Equality of kernel ``name`` with its plain version (in chunks
+        of VSSs), its time, the plain version's and the bound."""
+        k = self.kernels[name]
+        self.same(name, k["fn"](*args), self.chunked(name, args, n), what)
+        ms_ = self.time_ms(lambda: k["fn"](*args))
+        plain_ms = self.time_ms(lambda: self.chunked(name, args, n),
+                                iters=2, warmup=1)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / peak * 1e3
+        log(f"{name}: {ms_:.4f} ms (plain {plain_ms:.3f}, bound "
+            f"{max(t_bytes, t_ops):.4f} from {nbytes} bytes, {nops} "
+            f"operations) at {what}")
+        return {"ms": ms_, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    def road_ms_kernels(self, b, srcs):
+        """pull_ms (byteplane) and scatter_or (the dense packed level's
+        marks) at road's shapes, ROAD_LEVEL levels from ``srcs`` (bd
+        order), where the frontier is sparse: equality with their plain
+        versions, times, bounds; kept for the ``{"kernels"}`` rows."""
+        bd = b.bd
+        st = self.msbfs.msbfs_fused(bd, srcs, max_levels=ROAD_LEVEL)
+        runner = self.msbfs_packed.PackedMsBfs(bd)
+        v0 = runner.run(srcs, max_levels=ROAD_LEVEL - 1)[0]
+        v1 = runner.run(srcs, max_levels=ROAD_LEVEL)[0]
+        fp = self.msbfs.frontier_planes(bd, v1 & ~v0)
+        marks = self.ops.pull_ms_packed(bd.masks, fp, bd.v2r,
+                                        sigma=bd.sigma)
+        n_v, tau = bd.masks.shape
+        for name, cell in (
+                ("pull_ms", self.pull_ms_cell(bd, st.f_planes)),
+                ("scatter_or", self.scatter_cell(
+                    v1, bd.rows32, marks.reshape(-1, fp.shape[2])))):
+            what = (f"road shapes (N_v={n_v}, tau={tau}, kappa="
+                    f"{len(srcs)}, level {st.ell - 1})")
+            self.road_kernels[name] = dict(
+                self.kernel_row(name, *cell, n_v, what), level=st.ell - 1)
 
     def bmm_ms(self, a_planes, bd, f, v2r, name):
         """Yardstick: torch.bmm of the fp16 0/1 operands, (tau, sigma) mask
@@ -859,7 +924,7 @@ class Smoke:
         tiles = runner._mma_tiles
         pmarks = ops.pull_ms_packed(bd.masks, fp, bd.v2r, sigma=bd.sigma)
         kw = fp.shape[2]
-        pv_next = ops.scatter_or(v, rows, pmarks.reshape(-1, kw))
+        pv_next = ops.scatter_or(v, bd.rows32, pmarks.reshape(-1, kw))
         far = torch.zeros(bd.n_ext, dtype=torch.int32, device=v.device)
 
         def pstage2():
@@ -877,7 +942,7 @@ class Smoke:
                 bd.masks, fp, bd.v2r, sigma=bd.sigma),
             "pull_mma_ms_packed": lambda: ops.pull_mma_ms_packed(
                 tiles.a_planes, fp, tiles.v2r, sigma=bd.sigma),
-            "scatter_or": lambda: ops.scatter_or(v, rows,
+            "scatter_or": lambda: ops.scatter_or(v, bd.rows32,
                                                  pmarks.reshape(-1, kw)),
             "stage2_popcount": pstage2,
             "level_gather": lambda: plevel(gather),
@@ -894,6 +959,8 @@ class Smoke:
 
     # -------------------------------------- phases 4 and 5: multi-source --
     def ms_road(self, b, g, label):
+        """Phase 4's multi-source runs; returns their sources in bd
+        order."""
         np = self.np
         srcs = np.concatenate([[0], self.sources(g, ROAD_SOURCES - 1,
                                                  seed=6)])
@@ -908,6 +975,7 @@ class Smoke:
         if not (np.array_equal(pfar[: g.n].cpu().numpy()[b.perm], far)
                 and np.array_equal(preach, reach)):
             fail(f"{label}: PackedMsBfs far/reach differ from Blest.msbfs")
+        return b.perm[srcs].astype(np.int32)
 
     def ms_family(self, b, g, label):
         np, torch = self.np, self.torch
@@ -1197,7 +1265,6 @@ class Smoke:
                                    x["tiles"])
         n_v, tau = bd.masks.shape
         s1, sigma, kw = fp.shape
-        rows = bd.row_ids.reshape(-1)
         n_q = tiles.a_planes.shape[0]
         b_q = qids.numel()
         parents = int(torch.unique(bd.v2r.index_select(0, qids)).numel())
@@ -1250,6 +1317,7 @@ class Smoke:
                                           self.blest.UNREACHED,
                                           dtype=torch.int32, device=v1.device))
         qnp = qids.cpu().numpy()
+        trows = tiles.rows.to(torch.int32)
         stages = {
             "lane_runner_dense_level_packed": lambda: runners["packed"].level(
                 st, 3),
@@ -1257,10 +1325,10 @@ class Smoke:
             "lane_runner_queued_level": lambda: runners["packed"].level_queued(
                 st._replace(f=fq), 2, qnp),
             "pull_ms_packed+scatter_or": lambda: self.ops.scatter_or(
-                v1, rows, self.ops.pull_ms_packed(
+                v1, bd.rows32, self.ops.pull_ms_packed(
                     bd.masks, fp, bd.v2r, sigma=sigma).reshape(-1, kw)),
             "pull_mma_ms_packed+scatter_or": lambda: self.ops.scatter_or(
-                v1, tiles.rows, self.ops.pull_mma_ms_packed(
+                v1, trows, self.ops.pull_mma_ms_packed(
                     tiles.a_planes, fp, tiles.v2r,
                     sigma=sigma).reshape(-1, kw)),
         }
@@ -1340,12 +1408,13 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
     smoke.check_bfs(b, g, road_sources, [("fused", None, True),
                                          ("bucketed", None, True)],
                     road_label)
-    smoke.ms_road(b, g, road_label)
+    road_ms_srcs = smoke.ms_road(b, g, road_label)
     smoke.sync()
     road_counts = ops.launch_counts()
     log(f"road path launches: {road_counts}")
     smoke.time_bfs(b, g, road_sources, road_label)
     smoke.level_cost(b, 0, road_label, depth=3)
+    smoke.road_ms_kernels(b, road_ms_srcs)
     road = (b, g, road_label, road_sources)
     del b, g
 
@@ -1369,6 +1438,8 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
         row["launches_kron_road"] = sum(
             c[row["name"]] for c in (counts, ms_counts, road_counts,
                                      serve_kron_road))
+        if row["name"] in smoke.road_kernels:
+            row["road"] = smoke.road_kernels[row["name"]]
     return kernel_rows
 
 

@@ -91,8 +91,9 @@ class BvssDevice:
     @functools.cached_property
     def rows32(self) -> torch.Tensor:
         """``row_ids`` flattened as int32 (n_ext < 2**31), made on first
-        use: the scatter rows of the serve engine's fused dense kernels,
-        which read 4 bytes a slot where ``row_ids`` has 8."""
+        use: the scatter rows of the packed OR-scatters (``scatter_or`` and
+        the serve engine's fused dense kernels), which read 4 bytes a slot
+        where ``row_ids`` has 8."""
         return self.row_ids.reshape(-1).to(torch.int32)
 
 

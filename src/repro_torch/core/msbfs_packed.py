@@ -41,6 +41,10 @@ class PackedMsBfs:
             raise ValueError(f"unknown kernel {self.kernel!r}")
         self._mma_tiles = (mma.prep_mma_tiles(self.bd)
                            if self.kernel == "mma" else None)
+        # the OR-scatter's int32 rows, one a pulled slot: the MMA tiles'
+        # sentinel-padded rows as int32, made once here, else bd.rows32
+        self._rows = (self._mma_tiles.rows.to(torch.int32)
+                      if self._mma_tiles is not None else self.bd.rows32)
 
     def run(self, sources, max_levels: int | None = None):
         """``sources`` (kappa,) int in bd order, -1 for padding, kappa a
@@ -79,11 +83,9 @@ class PackedMsBfs:
             # the pad tiles' zero planes mark nothing on their sentinel rows
             marks = ops.pull_mma_ms_packed(tiles.a_planes, f, tiles.v2r,
                                            sigma=bd.sigma, block=tiles.block)
-            rows = tiles.rows
         else:
             marks = ops.pull_ms_packed(bd.masks, f, bd.v2r, sigma=bd.sigma)
-            rows = bd.row_ids.reshape(-1)
-        v_next = ops.scatter_or(v, rows, marks.reshape(-1, v.shape[1]))
+        v_next = ops.scatter_or(v, self._rows, marks.reshape(-1, v.shape[1]))
         diff = v_next & ~v
         new = words.popcount32(diff).sum(dim=1, dtype=torch.int32)
         return v_next, frontier_planes(bd, diff), far + ell * new, reach + new

@@ -24,74 +24,183 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kTileThreads = 128;  // one block per VSS tile
-constexpr int64_t kMaxBlocks = 132 * 16;
+// pull_ms's launch geometry, here alone: 8 warps a block; a block takes a
+// run of VSSs of kPullSlots slots (16 VSSs at tau = 128), fewer where their
+// frontier tiles would pass kPullSmem bytes (at least one VSS).
+constexpr int kPullThreads = 256;
+constexpr int kPullWarps = kPullThreads / 32;
+constexpr int kPullSlots = 2048;
+constexpr int kPullSmem = 32 * 1024;
+// scatter_or's launch geometry, here alone: 8 warps a block; a warp takes
+// kScatterRuns consecutive runs of kScatterRun mark words (16 bytes a lane),
+// so a block covers 4,096 words.
+constexpr int kScatterThreads = 256;
+constexpr int kScatterWarps = kScatterThreads / 32;
+constexpr int kScatterRun = 128;
+constexpr int kScatterRuns = 4;
 
-int grid_for(int64_t n) {
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+// The run of VSSs a block of pull_ms takes.
+int pull_vss_per_block(int tau, int sigma, int kappa) {
+  const int runs = (kPullSlots + tau - 1) / tau;
+  const int fit = kPullSmem / (sigma * kappa);
+  return fit < 1 ? 1 : (runs < fit ? runs : fit);
+}
+
+// Byte k of the result is 1 where byte k of x is nonzero, else 0: the low
+// seven bits carry into bit 7 (no carry leaves the byte), ORed with bit 7.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  return ((((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) >> 7) & 0x01010101u;
+}
+
+// The exact marks of four lanes: byte k is (sum over the set bits b of m of
+// int8(t[b * kappa + k])) > 0.  Even and odd bytes are summed in the two
+// 16-bit halves of a word each, sign-extended ((x ^ 0x80) - 0x80 per half);
+// |sum| <= 8 * 128 fits 16 bits.
+__device__ __forceinline__ uint32_t exact_marks4(unsigned m, const uint8_t* t,
+                                                 int kappa) {
+  uint32_t even = 0, odd = 0;
+  for (; m; m &= m - 1) {
+    const uint32_t x =
+        *reinterpret_cast<const uint32_t*>(t + (__ffs(m) - 1) * kappa);
+    even = __vadd2(even, __vsub2((x & 0x00ff00ffu) ^ 0x00800080u,
+                                 0x00800080u));
+    odd = __vadd2(odd, __vsub2(((x >> 8) & 0x00ff00ffu) ^ 0x00800080u,
+                               0x00800080u));
+  }
+  return (__vcmpgts2(even, 0) & 0x00010001u)
+         | ((__vcmpgts2(odd, 0) & 0x00010001u) << 8);
 }
 
 // Replaces repro/kernels/pull_ms.py::pull_ms (Pallas: one VSS per grid step,
 // its parent's (sigma, kappa) frontier tile fetched through a scalar-prefetch
 // index map on v2r, the (tau, sigma) @ (sigma, kappa) int8 product on the
-// MXU, then > 0).  One block per VSS q:
+// MXU, then > 0):
 //   marks[q, j, k] = (sum_{b < sigma} bit_b(masks[q, j]) * int8(f[v2r[q], b, k])) > 0
-// Bound: bytes; the (tau, kappa) marks written per VSS are almost all of
-// them.  The block stages its tau mask bytes and its parent's sigma x kappa
-// frontier bytes in shared memory, each read once, then writes the tile four
-// bytes a thread, lanes contiguous, so stores coalesce into whole lines.  The
-// sum runs over the set bits of the mask only (a zero bit adds nothing), on
-// the frontier bytes as signed int8, as the reference's int8 product does,
-// so the kernel equals it on any bytes and not only on 0/1.
-__global__ void pull_ms_kernel(const uint8_t* __restrict__ masks,
-                               const uint8_t* __restrict__ f_planes,
-                               const int32_t* __restrict__ v2r,
-                               uint8_t* __restrict__ marks, int tau,
-                               int sigma, int kappa) {
-  extern __shared__ uint8_t smem[];
+// What bounds it: device-memory bytes, almost all of them the (tau, kappa)
+// marks written per VSS (kron-22 at kappa = 64: 6.6 GB of 6.98); the
+// product's operations take far less at the int8 tensor-core rate, and this
+// kernel needs no tensor core: the sum runs over a mask's set bits only
+// (one or two at kron-22), so the work is a few instructions per 16 bytes
+// written, and the design keeps it there.
+//
+// Design.  Block b takes the run of vpb VSSs from q0 = b * vpb
+// (pull_vss_per_block; the last run may be shorter):
+//  1. a warp per VSS of the run: lane 0 loads v2r[q] once, the warp copies
+//     the parent's (sigma, kappa) tile into shared memory with 16-byte
+//     loads; the block copies the run's mask bytes too, and learns with the
+//     barrier (__syncthreads_or) whether any tile byte has bit 7 set;
+//  2. the run's marks are nv * tau * kappa / 16 items of 16 bytes, item
+//     it at byte 16 * it of the run's output: thread i takes items i,
+//     i + 256, ..., its (VSS, slot, 16-lane group) stepped, never divided,
+//     so consecutive threads store consecutive 16 bytes.  An item ORs the
+//     16-byte tile rows of its mask's set bits (one shared load a bit) and
+//     makes each byte 0/1 (nonzero_bytes), then stores 16 bytes once.
+// Exactness: the reference sums the frontier bytes as signed int8.  Where no
+// byte of the run's tiles has bit 7 set, every byte is >= 0, so the sum over
+// set bits is > 0 exactly when their OR is nonzero; a run with a byte >= 128
+// (only arbitrary bytes give one; BFS planes are 0/1) takes the exact sum,
+// two bytes to a 32-bit word (exact_marks4).  A kappa that is no multiple of
+// 16 (or an unaligned pointer) takes the byte path (kVec = false): the same
+// run, an item a byte, the exact sum.  Equal to the reference on any bytes.
+// v2r must lie in [0, num_sets_ext): it is read unchecked, as the TPU
+// kernel reads it.
+//
+// Geometry: 256 threads, ptxas -v: 40 registers (16-byte path) and 31 (byte
+// path), no spill; at kron-22 (kappa = 64) 16 VSSs a block, 10 KB of
+// dynamic shared memory, 50,399 blocks.  tools/ab_ms_kernels.py prints the
+// registers and times this kernel against the one it replaced; PERF.md
+// has the numbers.
+template <bool kVec>
+__global__ void __launch_bounds__(kPullThreads)
+    pull_ms_kernel(const uint8_t* __restrict__ masks,
+                   const uint8_t* __restrict__ f_planes,
+                   const int32_t* __restrict__ v2r,
+                   uint8_t* __restrict__ marks, int64_t n_q, int tau,
+                   int sigma, int kappa, int vpb) {
+  extern __shared__ uint4 pull_mem[];  // (vpb, sigma, kappa) tiles, masks
   const int tile = sigma * kappa;
-  int8_t* f_s = reinterpret_cast<int8_t*>(smem);  // (sigma, kappa)
-  uint8_t* m_s = smem + tile;                      // (tau,)
-  const int64_t q = blockIdx.x;
-  const uint8_t* f = f_planes + static_cast<int64_t>(v2r[q]) * tile;
-  const uint8_t sigma_bits = static_cast<uint8_t>((1u << sigma) - 1u);
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    f_s[i] = static_cast<int8_t>(f[i]);
-  }
-  for (int i = threadIdx.x; i < tau; i += blockDim.x) {
-    m_s[i] = masks[q * tau + i] & sigma_bits;
-  }
-  __syncthreads();
-  const int tk = tau * kappa;
-  uint8_t* out = marks + q * tk;
-  if (kappa % 4 == 0) {
-    // four lanes of one slot per thread; tk % 4 == 0, so every tile starts
-    // on a 4-byte boundary and the word store is aligned
-    uint32_t* out_w = reinterpret_cast<uint32_t*>(out);
-    for (int w = threadIdx.x; w < tk / 4; w += blockDim.x) {
-      const int j = (4 * w) / kappa;
-      const int k = (4 * w) % kappa;
-      int acc[4] = {0, 0, 0, 0};
-      for (unsigned m = m_s[j]; m; m &= m - 1) {
-        const int8_t* row = f_s + (__ffs(m) - 1) * kappa + k;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[e] += row[e];
+  uint8_t* tiles = reinterpret_cast<uint8_t*>(pull_mem);
+  uint8_t* m_s = tiles + ((vpb * tile + 15) & ~15);  // (vpb, tau)
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * vpb;
+  const int nv = n_q - q0 < vpb ? static_cast<int>(n_q - q0) : vpb;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint32_t high = 0;  // the OR of the bytes this thread copied
+  for (int v = warp; v < nv; v += kPullWarps) {
+    int p = 0;
+    if (lane == 0) p = v2r[q0 + v];
+    p = __shfl_sync(0xffffffffu, p, 0);
+    const uint8_t* src = f_planes + static_cast<int64_t>(p) * tile;
+    uint8_t* dst = tiles + v * tile;
+    if (kVec) {
+      for (int i = lane; i < tile / 16; i += 32) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(src) + i);
+        high |= x.x | x.y | x.z | x.w;
+        reinterpret_cast<uint4*>(dst)[i] = x;
       }
-      uint32_t word = 0;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) word |= static_cast<uint32_t>(acc[e] > 0) << (8 * e);
-      out_w[w] = word;
+    } else {
+      for (int i = lane; i < tile; i += 32) {
+        const uint8_t x = __ldg(src + i);
+        high |= x;
+        dst[i] = x;
+      }
     }
-  } else {
-    for (int i = threadIdx.x; i < tk; i += blockDim.x) {
-      const int j = i / kappa;
-      const int k = i % kappa;
+  }
+  const unsigned sigma_bits = (1u << sigma) - 1u;
+  const uint8_t* mq = masks + q0 * tau;
+  for (int i = threadIdx.x; i < nv * tau; i += kPullThreads) {
+    m_s[i] = mq[i] & sigma_bits;
+  }
+  const bool exact = __syncthreads_or((high & 0x80808080u) != 0) != 0;
+
+  constexpr int kW = kVec ? 16 : 1;  // bytes an item
+  const int groups = kappa / kW;     // items a slot
+  const int per_vss = tau * groups;
+  const int items = nv * per_vss;
+  int g = threadIdx.x % groups;
+  int j = (threadIdx.x / groups) % tau;
+  int v = threadIdx.x / per_vss;
+  const int dg = kPullThreads % groups, dj = (kPullThreads / groups) % tau;
+  const int dv = kPullThreads / per_vss;
+  uint8_t* out = marks + q0 * tau * kappa;
+  for (int it = threadIdx.x; it < items; it += kPullThreads) {
+    const unsigned m = m_s[v * tau + j];
+    const uint8_t* t = tiles + v * tile + g * kW;
+    if (kVec) {
+      uint4 r;
+      if (exact) {
+        r = make_uint4(exact_marks4(m, t, kappa), exact_marks4(m, t + 4, kappa),
+                       exact_marks4(m, t + 8, kappa),
+                       exact_marks4(m, t + 12, kappa));
+      } else {
+        uint4 acc = make_uint4(0, 0, 0, 0);
+        for (unsigned mm = m; mm; mm &= mm - 1) {
+          const uint4 x =
+              *reinterpret_cast<const uint4*>(t + (__ffs(mm) - 1) * kappa);
+          acc.x |= x.x; acc.y |= x.y; acc.z |= x.z; acc.w |= x.w;
+        }
+        r = make_uint4(nonzero_bytes(acc.x), nonzero_bytes(acc.y),
+                       nonzero_bytes(acc.z), nonzero_bytes(acc.w));
+      }
+      __stcs(reinterpret_cast<uint4*>(out) + it, r);
+    } else {
       int acc = 0;
-      for (unsigned m = m_s[j]; m; m &= m - 1) acc += f_s[(__ffs(m) - 1) * kappa + k];
-      out[i] = acc > 0;
+      for (unsigned mm = m; mm; mm &= mm - 1) {
+        acc += static_cast<int8_t>(t[(__ffs(mm) - 1) * kappa]);
+      }
+      out[it] = acc > 0;
     }
+    g += dg;
+    if (g >= groups) {
+      g -= groups;
+      ++j;
+    }
+    j += dj;
+    if (j >= tau) {
+      j -= tau;
+      ++v;
+    }
+    v += dv;
   }
 }
 
@@ -152,29 +261,110 @@ __global__ void pull_mma_ms_packed_kernel(const int8_t* __restrict__ a_planes,
 // Replaces repro/kernels/scatter_or.py::scatter_or (Pallas: a grid of
 // n_rows + t steps, an init copy then one read-modify-write of out[rows[i]]
 // per step, correct only because TPU grid steps run in order on one core).
-// Blocks run in no order here, so each word is ORed in with atomicOr: OR is
+// Blocks run in no order here, so the words are ORed in with atomics: OR is
 // commutative and idempotent, so duplicate rows combine exactly whatever the
-// order.  The wrapper copies dest into out first.  One thread per scatter
-// element i (a grid-stride loop), over its kw words:
+// order.  The wrapper copies dest into a fresh out first.
 //   out[rows[i], w] |= marks[i, w]
-// Bound: bytes (marks and rows read, out read and written).  A zero word is
-// skipped (OR with 0 changes nothing), so slots that mark nothing cost one
-// read and no atomic.  rows are int64 (the port's row_ids) and must lie in
-// [0, n_rows): the kernel reads them unchecked, as the pulls read v2r.
-__global__ void scatter_or_kernel(uint32_t* __restrict__ out,
-                                  const int64_t* __restrict__ rows,
-                                  const uint32_t* __restrict__ marks,
-                                  int64_t t, int kw) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       s < t; s += stride) {
-    const uint32_t* ms = marks + s * kw;
-    uint32_t* row = nullptr;
-    for (int w = 0; w < kw; ++w) {
-      const uint32_t m = ms[w];
-      if (m == 0) continue;
-      if (row == nullptr) row = out + rows[s] * kw;
-      atomicOr(row + w, m);
+// What bounds it: device-memory bytes (kron-22, kappa = 256: marks 3.30 GB,
+// int32 rows 0.41 GB at most, out in and out 0.27 GB), then the L2 atomics
+// of the scatter, one request per row's words where the warp's lanes sit on
+// one row's consecutive words.
+//
+// Design.  The marks are read as one flat array of t * kw words, in runs of
+// kScatterRun words: a warp takes kScatterRuns consecutive runs, loading
+// each with one 16-byte load a lane (the next run's load issued before this
+// run's atomics) into its staging row in shared memory; then lane l takes
+// the run's items l, l + 32, ...: word pairs where kw is even (one 64-bit
+// atomicOr a pair; a row starts 8-byte aligned, out being a fresh tensor),
+// words where it is odd (one 32-bit atomicOr a word).  So consecutive lanes
+// sit on consecutive words of one element, and a row's words go out in one
+// warp instruction.  An item's element and word come from the run's first
+// (stepped a run at a time) plus a per-lane offset computed once, never a
+// division a word.  Only a lane whose pair or word is nonzero loads its
+// element's int32 row and issues an atomic: an element whose words are all
+// zero (most of road's, on a sparse frontier) costs its marks' read alone.
+// rows must lie in [0, n_rows): they are read unchecked, as the pulls read
+// v2r.
+//
+// Geometry: 256 threads, 4 KB of static shared memory, ptxas -v: 32
+// registers (pairs) and 38 (words), no spill; 201,596 blocks at kron-22
+// (kappa = 256).  With the atomics compiled out (a diagnostic of
+// tools/ab_ms_kernels.py) the call runs at its byte bound; the atomics'
+// read-modify-write of out, whose rows follow no order, takes the rest.
+template <bool kPairs>
+__global__ void __launch_bounds__(kScatterThreads)
+    scatter_or_kernel(uint32_t* __restrict__ out,
+                      const int32_t* __restrict__ rows,
+                      const uint32_t* __restrict__ marks, int64_t t, int kw) {
+  __shared__ uint4 stage[kScatterWarps][32];
+  constexpr int kSpan = kPairs ? 2 : 1;                 // words an item
+  constexpr int kItems = kScatterRun / (32 * kSpan);    // a lane's, a run
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t n = t * kw;
+  int64_t r0 = (static_cast<int64_t>(blockIdx.x) * kScatterWarps + warp)
+               * (kScatterRun * kScatterRuns);
+  if (r0 >= n) return;
+  // the run's first word is word w0 of element s0
+  int64_t s0 = r0 / kw;
+  int w0 = static_cast<int>(r0 - s0 * kw);
+  const int rq = kScatterRun / kw, rr = kScatterRun % kw;
+  int dq[kItems], dr[kItems];  // item k's offset: dq[k] elements, dr[k] words
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int o = kSpan * (lane + 32 * k);
+    dq[k] = o / kw;
+    dr[k] = o - dq[k] * kw;
+  }
+  const bool vec = (reinterpret_cast<uintptr_t>(marks) & 15u) == 0;
+  auto load = [&](int64_t r) {  // words r + 4 lane .. + 3, zero past n
+    const int64_t i = r + 4 * lane;
+    if (vec && i + 4 <= n) {
+      return __ldcs(reinterpret_cast<const uint4*>(marks + i));
+    }
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (i < n) x.x = __ldcs(marks + i);
+    if (i + 1 < n) x.y = __ldcs(marks + i + 1);
+    if (i + 2 < n) x.z = __ldcs(marks + i + 2);
+    if (i + 3 < n) x.w = __ldcs(marks + i + 3);
+    return x;
+  };
+  uint4 next = load(r0);
+  for (int run = 0; run < kScatterRuns; ++run) {
+    stage[warp][lane] = next;
+    if (run + 1 < kScatterRuns && r0 + kScatterRun < n) {
+      next = load(r0 + kScatterRun);
+    }
+    __syncwarp();
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(stage[warp]);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int o = kSpan * (lane + 32 * k);
+      const unsigned long long x =
+          kPairs ? *reinterpret_cast<const unsigned long long*>(words + o)
+                 : words[o];
+      if (x) {
+        int64_t s = s0 + dq[k];
+        int w = w0 + dr[k];
+        if (w >= kw) {
+          w -= kw;
+          ++s;
+        }
+        uint32_t* dst = out + static_cast<int64_t>(rows[s]) * kw + w;
+        if (kPairs) {
+          atomicOr(reinterpret_cast<unsigned long long*>(dst), x);
+        } else {
+          atomicOr(dst, static_cast<uint32_t>(x));
+        }
+      }
+    }
+    __syncwarp();
+    r0 += kScatterRun;
+    if (r0 >= n) break;
+    s0 += rq;
+    w0 += rr;
+    if (w0 >= kw) {
+      w0 -= kw;
+      ++s0;
     }
   }
 }
@@ -186,17 +376,27 @@ extern "C" {
 int blest_pull_ms(const void* masks, const void* f_planes, const void* v2r,
                   void* marks, int64_t n_q, int tau, int sigma, int kappa,
                   void* stream) {
-  const int smem = sigma * kappa + tau;
+  if (n_q < 1 || tau < 1 || sigma < 1 || sigma > 8 || kappa < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int vpb = pull_vss_per_block(tau, sigma, kappa);
+  const int64_t blocks = (n_q + vpb - 1) / vpb;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = ((vpb * sigma * kappa + 15) & ~15) + vpb * tau;
+  const bool vec = kappa % 16 == 0
+                   && (reinterpret_cast<uintptr_t>(f_planes) & 15u) == 0
+                   && (reinterpret_cast<uintptr_t>(marks) & 15u) == 0;
+  auto kernel = vec ? pull_ms_kernel<true> : pull_ms_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        pull_ms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  pull_ms_kernel<<<static_cast<unsigned>(n_q), kTileThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(blocks), kPullThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(masks), static_cast<const uint8_t*>(f_planes),
-      static_cast<const int32_t*>(v2r), static_cast<uint8_t*>(marks), tau,
-      sigma, kappa);
+      static_cast<const int32_t*>(v2r), static_cast<uint8_t*>(marks), n_q, tau,
+      sigma, kappa, vpb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -224,9 +424,16 @@ int blest_pull_mma_ms_packed(const void* a_planes, const void* f,
 
 int blest_scatter_or(void* out, const void* rows, const void* marks,
                      int64_t t, int kw, void* stream) {
-  scatter_or_kernel<<<grid_for(t), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(out), static_cast<const int64_t*>(rows),
+  constexpr int64_t kWords = int64_t{kScatterWarps} * kScatterRun
+                             * kScatterRuns;  // a block's
+  if (t < 1 || kw < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = (t * kw + kWords - 1) / kWords;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = kw % 2 == 0 ? scatter_or_kernel<true>
+                            : scatter_or_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), kScatterThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), static_cast<const int32_t*>(rows),
       static_cast<const uint32_t*>(marks), t, kw);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,9 +7,10 @@ This is what keeps the multi-source state packed: a max-scatter cannot OR
 packed words.  The TPU kernel relies on its grid steps running in order;
 the CUDA kernel ORs each word in with ``atomicOr`` instead, which is exact
 in any order because OR is commutative and idempotent.  Words are
-``torch.int32`` bit patterns; ``rows`` is int64 (the port's ``row_ids``).
-:func:`scatter_or` takes CUDA tensors only and counts its launches in
-``scatter_or.launches``;
+``torch.int32`` bit patterns; the kernel reads ``rows`` as int32
+(``BvssDevice.rows32``, the port's int64 ``row_ids`` as int32), the plain
+version takes either width.  :func:`scatter_or` takes CUDA tensors only and
+counts its launches in ``scatter_or.launches``;
 :mod:`repro_torch.kernels.ops` sends CPU tensors to :func:`scatter_or_ref`.
 """
 from __future__ import annotations
@@ -23,12 +24,12 @@ from repro_torch.kernels.pull_ss import _check
 def scatter_or(dest: torch.Tensor, rows: torch.Tensor,
                marks: torch.Tensor) -> torch.Tensor:
     """Returns a new (n_rows, kw) int32 tensor: ``dest`` with ``marks``
-    (t, kw) OR-scattered into rows ``rows`` (t,) int64.  Every row must lie
+    (t, kw) OR-scattered into rows ``rows`` (t,) int32.  Every row must lie
     in [0, n_rows): the kernel reads ``rows`` unchecked, as the pulls read
     ``v2r``."""
     _check(dest, torch.int32, 2, "dest")
     _check(marks, torch.int32, 2, "marks")
-    _check(rows, torch.int64, 1, "rows")
+    _check(rows, torch.int32, 1, "rows")
     kw = dest.shape[1]
     t = marks.shape[0]
     if marks.shape[1] != kw or rows.shape != (t,) or not (

@@ -897,8 +897,8 @@ class _LaneRunner:
         """Frontier-compacted pull+scatter over the active list only
         (DESIGN.md §10.1): work ~ |Q| * tau instead of N_v * tau."""
         bd = self.bd
-        rows = bd.row_ids.index_select(0, qids).reshape(-1)
         if self.substrate == "byteplane":
+            rows = bd.row_ids.index_select(0, qids).reshape(-1)
             masks_q = bd.masks.index_select(0, qids)        # (B, tau)
             ft = f.index_select(0, bd.v2r.index_select(0, qids))
             marks = torch.zeros((qids.shape[0], bd.tau, self.kappa),
@@ -910,6 +910,7 @@ class _LaneRunner:
                 0, rows, marks.reshape(-1, self.kappa), "amax")
         marks = ops.pull_ms_packed_queued(bd.masks, f, bd.v2r, qids,
                                           sigma=bd.sigma)
+        rows = bd.rows32.view(-1, bd.tau).index_select(0, qids).reshape(-1)
         return ops.scatter_or(v, rows, marks.reshape(-1, self.kw))
 
     def _finish_level(self, state: LaneState, v_next, ell: int):
