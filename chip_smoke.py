@@ -20,11 +20,16 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    where kw is odd or 2) and a prefix whose word count no warp's run
    divides; random int8 planes (negative
    weights) for the MMA pull, and a ragged VSS count that the MMA pull
-   must refuse.  The serve kernels over the same pool: the fused dense
+   must refuse; the packed pull also on mask bytes with bits above sigma,
+   all-zero masks; both packed pulls also where a block takes its full run
+   of VSSs (tau in {1,2,4,128}, kw in {1,2,3,8}, a ragged last run; the
+   queued one over ids repeated in no order).  The serve kernels over the
+   same pool: the fused dense
    levels with duplicate and all-on-one rows, all-zero masks and a VSS
    count that is no multiple of the VSSs a block takes (the MMA form also
-   on random int8 planes), and the queued pull over empty, full and random
-   buckets of VSS ids.
+   on random int8 planes), and the queued pull over buckets of VSS ids
+   made of padding alone, full, random, of one id, and of repeated ids in
+   no order (on mask bytes with bits above sigma).
 3. The main path at full size: kron (RMAT) scale 22, edge factor 16,
    through ``Blest.preprocess(g, reorder="natural", probe_switching=True)``
    and ``Blest.bfs`` from 4 seeded sources under all 8 driver combinations
@@ -50,8 +55,14 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    32 sources through ``Blest.msbfs`` and ``PackedMsBfs(kernel="gather")``,
    equal in far and reach, two lanes equal to ``Blest.bfs`` (launches
    counted from just before the runs to just after); then their times, and
-   ``pull_ms`` and ``scatter_or`` at this graph's shapes, ROAD_LEVEL levels
-   from those sources: equality with their plain versions, times, bounds.
+   ``pull_ms``, ``scatter_or``, ``pull_ms_packed``, the queued pull over
+   the VSSs active there and the fused dense levels (kernels 8 and 10) at
+   this graph's shapes, ROAD_LEVEL levels from those sources: equality with
+   their plain versions, times (the last four also as the device time of a
+   replayed CUDA graph of the calls, which leaves the host's enqueue cost
+   out), bounds.  Each graph's one dense single-source level also times
+   ``pull_ss_packed`` and ``frontier_sweep`` that way, beside their byte
+   bounds.
 5. Every family of ``data/graphs.FAMILIES`` at scale 10 with automatic
    dispatch, all 8 combinations equal to the oracle; ``Blest.closeness``
    over all sources (fused and bucketed, both normalisations) against
@@ -80,8 +91,9 @@ nvidia-smi gives them), one JSON line ``{"kernels": [...]}`` (launches on the
 main path; ``launches_kron_road``, the launches of the kron and road paths
 of phases 3, 3b, 4 and 6 together, without the scale-10 families; ms per
 launch, plain version's ms, the bound and what sets it, the library call's
-ms; for ``pull_ms`` and ``scatter_or`` also ``road``, their ms, plain ms
-and bound at road's shapes ROAD_LEVEL levels in), one JSON line
+ms; for the multi-source kernels but ``pull_mma_ms_packed`` also ``road``,
+their ms, graph ms, plain ms and bound at road's shapes ROAD_LEVEL levels
+in), one JSON line
 ``{"bfs": [...]}`` (ms, edges/s and
 depth per BFS; per-stage ms of one dense level) and one JSON line
 ``{"msbfs": [...]}`` (per multi-source run: graph, layout, kappa, levels,
@@ -173,6 +185,7 @@ class Smoke:
         from repro_torch.serve import bfs_engine, workloads
 
         self.np, self.torch, self.dev, self.fused = np, torch, dev, fused
+        self.packed_vss_per_block = pull_ms_packed.packed_vss_per_block
         self.blest, self.ref_bfs, self.Blest = blest, ref_bfs, Blest
         self.msbfs, self.msbfs_packed, self.mma = msbfs, msbfs_packed, mma
         self.BvssConfig, self.build_bvss, self.Graph = (BvssConfig, build_bvss,
@@ -266,6 +279,35 @@ class Smoke:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters
+
+    def time_graph_ms(self, fn, iters: int = 20, warmup: int = 3,
+                      replays: int = 5) -> float:
+        """Device time of one call without the host's enqueue cost: after
+        the warm-up (which also builds the libraries), ``iters`` calls are
+        captured into one CUDA graph, and its replays are timed with CUDA
+        events.  ``fn`` must read nothing back to the host; a capture that
+        fails raises."""
+        torch = self.torch
+        if self.dev.type != "cuda":  # a rehearsal on the CPU: no graphs
+            return self.time_ms(fn, iters, warmup)
+        for _ in range(warmup):
+            fn()
+        self.sync()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / (replays * iters)
+        del graph
+        return ms
 
     def same(self, name: str, got, want, what: str):
         torch = self.torch
@@ -448,9 +490,18 @@ class Smoke:
             "level": level,
             "level_with_flag_read": lambda: bool(level().f_words.any()),
         }
+        n_v, tau = bd.masks.shape
         row = {"graph": label, "lazy": b.stats.lazy, "depth": depth,
                "frontier_sets": int((state.f_words != 0).sum()),
-               "stage_ms": {k: self.time_ms(f) for k, f in stages.items()}}
+               "stage_ms": {k: self.time_ms(f) for k, f in stages.items()},
+               # the two kernels' device time, without the host's enqueue
+               "graph_ms": {k: self.time_graph_ms(stages[k])
+                            for k in ("pull_ss_packed", "frontier_sweep")},
+               "bound_ms": {k: nbytes / HBM_BYTES_PER_S * 1e3
+                            for k, nbytes in (
+                                ("pull_ss_packed", 2 * n_v * tau + n_v),
+                                ("frontier_sweep", 11 * bd.n_ext
+                                 + 2 * (bd.n_ext // bd.sigma)))}}
         self.bfs_rows.append(row)
         log(f"{label} one dense level at depth {depth}: {row['stage_ms']}")
 
@@ -462,6 +513,11 @@ class Smoke:
             return self.t(np.zeros(shape, np.int32))
         return self.t(rng.integers(0, 1 << 32, shape, dtype=np.uint64)
                       .astype(np.uint32).view(np.int32))
+
+    def any_masks(self, rng, bd):
+        """Random mask bytes of ``bd``'s shape: bits above sigma set too."""
+        return self.t(rng.integers(0, 256, tuple(bd.masks.shape))
+                      .astype(self.np.uint8))
 
     def ms_kernel_pool(self, seed: int = 1):
         np, torch, mma = self.np, self.torch, self.mma
@@ -494,6 +550,12 @@ class Smoke:
             marks = k["fn"](bd.masks, fp, bd.v2r, sigma=sigma)
             self.same("pull_ms_packed", marks,
                       k["plain"](bd.masks, fp, bd.v2r, sigma), what)
+            for m_, w in ((self.any_masks(rng, bd),
+                           f"{what}, mask bits above sigma"),
+                          (torch.zeros_like(bd.masks), f"{what}, zero masks")):
+                self.same("pull_ms_packed", k["fn"](m_, fp, bd.v2r,
+                                                    sigma=sigma),
+                          k["plain"](m_, fp, bd.v2r, sigma), w)
             rows = bd.rows32
             dest = self.rand_words(rng, (bd.n_ext, kw), empty=0.3)
             k = self.kernels["scatter_or"]
@@ -534,6 +596,54 @@ class Smoke:
                      f"the wrong error: {e}")
         else:
             fail("pull_mma_ms_packed accepted a ragged VSS count")
+
+    def packed_runs_pool(self, seed: int = 3):
+        """The packed pulls (kernels 5 and 9) where a block takes its full
+        run of VSSs, which the pool's small graphs never reach: for tau in
+        {1, 2, 4, 128} and kw in {1, 2, 3, 8}, random masks (bits above
+        sigma, zero rows) over the smallest VSS count whose run is the full
+        one, plus a ragged part run; the queued pull over as many ids,
+        repeated, in no order, the last row (zero masks) among them."""
+        np = self.np
+        rng = np.random.default_rng(seed)
+        vpb = self.packed_vss_per_block
+        # the built library's runs at the production shapes, as the CPU
+        # tests' model of the geometry has them: kron-22 dense and queued,
+        # road-20 dense and queued
+        for (n_q, tau, kw), want in (((806_384, 128, 8), 8),
+                                     ((262_144, 128, 8), 8),
+                                     ((131_080, 128, 1), 64),
+                                     ((16_384, 128, 1), 16)):
+            got = vpb(n_q, tau, 8, kw)
+            if got != want:
+                fail(f"packed_vss_per_block({n_q}, {tau}, 8, {kw}) = {got}, "
+                     f"the CPU tests' model has {want}")
+        for tau in (1, 2, 4, 128):
+            for kw in (1, 2, 3, 8):
+                sigma = int(rng.choice((2, 4, 8)))
+                full = vpb(2**31 - 1, tau, sigma, kw)
+                n_q = 1024
+                while vpb(n_q, tau, sigma, kw) < full:
+                    n_q *= 2
+                n_q += full // 2 + 1  # a ragged last run
+                masks = rng.integers(0, 256, (n_q, tau)).astype(np.uint8)
+                masks[rng.random(n_q) < 0.2] = 0
+                masks[-1] = 0
+                masks = self.t(masks)
+                s1 = int(rng.integers(1, 4096))
+                f = self.rand_words(rng, (s1, sigma, kw), empty=0)
+                v2r = self.t(rng.integers(0, s1, n_q).astype(np.int32))
+                qids = self.t(rng.integers(0, n_q, n_q).astype(np.int32))
+                what = (f"full runs (N_q={n_q}, sigma={sigma}, tau={tau}, "
+                        f"kw={kw}, {full} VSSs a block)")
+                k = self.kernels["pull_ms_packed"]
+                self.same("pull_ms_packed", k["fn"](masks, f, v2r,
+                                                    sigma=sigma),
+                          k["plain"](masks, f, v2r, sigma), what)
+                k = self.kernels["pull_ms_packed_queued"]
+                self.same("pull_ms_packed_queued",
+                          k["fn"](masks, f, v2r, qids, sigma=sigma),
+                          k["plain"](masks, f, v2r, qids, sigma), what)
 
     # --------------------------------- phase 2c: serve kernels' pool --
     def serve_kernel_pool(self, seed: int = 2):
@@ -576,23 +686,31 @@ class Smoke:
                           k["fn"](v, m_, fp, v2r_, r, sigma=sigma),
                           k["plain"](v, m_, fp, v2r_, r, sigma), w)
             k = self.kernels["pull_ms_packed_queued"]
-            for fill in ("empty", "full", "some"):
-                if fill == "empty":
-                    act = np.zeros(0, np.int32)
-                elif fill == "full":
-                    act = np.arange(bd.num_vss, dtype=np.int32)
+            for fill in ("padding", "full", "some", "one", "repeated"):
+                masks = bd.masks
+                if fill == "one":  # B = 1
+                    qids = np.array([rng.integers(bd.num_vss + 1)], np.int32)
+                elif fill == "repeated":  # in no order, the pad among them
+                    qids = rng.integers(0, bd.num_vss + 1, int(rng.integers(
+                        2, 3 * bd.num_vss + 4))).astype(np.int32)
+                    masks = self.any_masks(rng, bd)
                 else:
-                    act = np.sort(rng.choice(
-                        max(bd.num_vss, 1), int(rng.integers(
-                            0, bd.num_vss + 1)), replace=False))
-                qids = np.full(self.blest.bucket_size(act.size), bd.num_vss,
-                               np.int32)
-                qids[: act.size] = act
+                    if fill == "padding":
+                        act = np.zeros(0, np.int32)
+                    elif fill == "full":
+                        act = np.arange(bd.num_vss, dtype=np.int32)
+                    else:
+                        act = np.sort(rng.choice(
+                            max(bd.num_vss, 1), int(rng.integers(
+                                0, bd.num_vss + 1)), replace=False))
+                    qids = np.full(self.blest.bucket_size(act.size),
+                                   bd.num_vss, np.int32)
+                    qids[: act.size] = act
                 qids = self.t(qids)
                 self.same("pull_ms_packed_queued",
-                          k["fn"](bd.masks, fp, bd.v2r, qids, sigma=sigma),
-                          k["plain"](bd.masks, fp, bd.v2r, qids, sigma),
-                          f"{what}, {fill} bucket")
+                          k["fn"](masks, fp, bd.v2r, qids, sigma=sigma),
+                          k["plain"](masks, fp, bd.v2r, qids, sigma),
+                          f"{what}, {fill} bucket (B={qids.numel()})")
             tiles = mma.prep_mma_tiles(bd, block=(8, 16)[case % 2])
             trows = tiles.rows.to(torch.int32)
             k = self.kernels["pull_scatter_mma_ms_packed"]
@@ -766,10 +884,7 @@ class Smoke:
         # (args, bytes moved once, operations, their peak rate)
         cells = {
             "pull_ms": self.pull_ms_cell(bd, st.f_planes),
-            "pull_ms_packed": ((bd.masks, fp, bd.v2r),
-                               n_v * tau + 4 * s1 * sigma * kw + 4 * n_v
-                               + 4 * n_v * tau * kw,
-                               2 * n_v * tau * sigma * kw, ALU_OPS_PER_S),
+            "pull_ms_packed": self.packed_pull_cell(bd, fp),
             "scatter_or": self.scatter_cell(v2, rows, marks.reshape(-1, kw)),
             "pull_mma_ms_packed": ((tiles.a_planes, fp, tiles.v2r),
                                    n_q * tau * sigma + 4 * s1 * sigma * kw
@@ -808,6 +923,16 @@ class Smoke:
                 n_v * tau + s1 * sigma * kappa + 4 * n_v + n_v * tau * kappa,
                 2 * n_v * tau * sigma * kappa, INT8_MMA_OPS_PER_S)
 
+    def packed_pull_cell(self, bd, fp):
+        """pull_ms_packed's (args, bytes, operations, rate) on the frontier
+        tiles ``fp``: masks, tiles and v2r read, marks written."""
+        n_v, tau = bd.masks.shape
+        s1, sigma, kw = fp.shape
+        return ((bd.masks, fp, bd.v2r),
+                n_v * tau + 4 * s1 * sigma * kw + 4 * n_v
+                + 4 * n_v * tau * kw,
+                2 * n_v * tau * sigma * kw, ALU_OPS_PER_S)
+
     def scatter_cell(self, v, rows, marks):
         """scatter_or's (args, bytes, operations, rate) on int32 ``rows``:
         the marks read, the rows of the elements with a nonzero word read
@@ -817,45 +942,58 @@ class Smoke:
                 4 * marks.numel() + 4 * live + 2 * 4 * v.numel(),
                 marks.numel(), ALU_OPS_PER_S)
 
-    def kernel_row(self, name, args, nbytes, nops, peak, n, what):
+    def kernel_row(self, name, args, nbytes, nops, peak, n, what,
+                   graph=False):
         """Equality of kernel ``name`` with its plain version (in chunks
-        of VSSs), its time, the plain version's and the bound."""
+        of VSSs), its time, the plain version's and the bound; with
+        ``graph``, also its device time in a replayed CUDA graph."""
         k = self.kernels[name]
         self.same(name, k["fn"](*args), self.chunked(name, args, n), what)
-        ms_ = self.time_ms(lambda: k["fn"](*args))
-        plain_ms = self.time_ms(lambda: self.chunked(name, args, n),
-                                iters=2, warmup=1)
+        row = {"ms": self.time_ms(lambda: k["fn"](*args))}
+        if graph:
+            row["graph_ms"] = self.time_graph_ms(lambda: k["fn"](*args))
+        row["plain_ms"] = self.time_ms(lambda: self.chunked(name, args, n),
+                                       iters=2, warmup=1)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / peak * 1e3
-        log(f"{name}: {ms_:.4f} ms (plain {plain_ms:.3f}, bound "
-            f"{max(t_bytes, t_ops):.4f} from {nbytes} bytes, {nops} "
-            f"operations) at {what}")
-        return {"ms": ms_, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        row.update(bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"{name}: {row} ({nbytes} bytes, {nops} operations) at {what}")
+        return row
 
     def road_ms_kernels(self, b, srcs):
-        """pull_ms (byteplane) and scatter_or (the dense packed level's
-        marks) at road's shapes, ROAD_LEVEL levels from ``srcs`` (bd
-        order), where the frontier is sparse: equality with their plain
-        versions, times, bounds; kept for the ``{"kernels"}`` rows."""
+        """The multi-source kernels that run on road's levels at its
+        shapes, ROAD_LEVEL levels from ``srcs`` (bd order), where the
+        frontier is sparse: pull_ms (byteplane), scatter_or (the dense
+        packed level's marks), pull_ms_packed, the queued pull over the
+        VSSs active there and the fused dense levels (kernels 8 and 10):
+        equality with their plain versions, times (kernels 5 and 8-10
+        also as a CUDA graph's device time), bounds; kept for the
+        ``{"kernels"}`` rows."""
         bd = b.bd
         st = self.msbfs.msbfs_fused(bd, srcs, max_levels=ROAD_LEVEL)
-        runner = self.msbfs_packed.PackedMsBfs(bd)
+        runner = self.msbfs_packed.PackedMsBfs(bd, kernel="mma")
         v0 = runner.run(srcs, max_levels=ROAD_LEVEL - 1)[0]
         v1 = runner.run(srcs, max_levels=ROAD_LEVEL)[0]
         fp = self.msbfs.frontier_planes(bd, v1 & ~v0)
         marks = self.ops.pull_ms_packed(bd.masks, fp, bd.v2r,
                                         sigma=bd.sigma)
         n_v, tau = bd.masks.shape
-        for name, cell in (
-                ("pull_ms", self.pull_ms_cell(bd, st.f_planes)),
-                ("scatter_or", self.scatter_cell(
-                    v1, bd.rows32, marks.reshape(-1, fp.shape[2])))):
+        cells = {
+            "pull_ms": self.pull_ms_cell(bd, st.f_planes),
+            "scatter_or": self.scatter_cell(v1, bd.rows32,
+                                            marks.reshape(-1, fp.shape[2])),
+            "pull_ms_packed": self.packed_pull_cell(bd, fp),
+            **self.serve_cells(bd, v1, fp, fp, self.active_qids(bd, fp),
+                               runner._mma_tiles)}
+        del marks
+        for name, cell in cells.items():
             what = (f"road shapes (N_v={n_v}, tau={tau}, kappa="
                     f"{len(srcs)}, level {st.ell - 1})")
             self.road_kernels[name] = dict(
-                self.kernel_row(name, *cell, n_v, what), level=st.ell - 1)
+                self.kernel_row(name, *cell, n_v, what,
+                                graph=name not in ("pull_ms", "scatter_or")),
+                level=st.ell - 1)
 
     def bmm_ms(self, a_planes, bd, f, v2r, name):
         """Yardstick: torch.bmm of the fp16 0/1 operands, (tau, sigma) mask
@@ -1239,12 +1377,20 @@ class Smoke:
         one level from them (``fq``) and the bucket of the VSSs active
         there (``qids``), the sparse frontier that Eq. (6) sends to the
         queue; the MMA tiles."""
-        np = self.np
         runner = self.msbfs_packed.PackedMsBfs(bd, kernel="mma")
         v0 = runner.run(packed_srcs, max_levels=0)[0]
         v1 = runner.run(packed_srcs, max_levels=1)[0]
         v2 = runner.run(packed_srcs, max_levels=2)[0]
         fq = self.msbfs.frontier_planes(bd, v1 & ~v0)
+        return dict(v1=v1, fp=self.msbfs.frontier_planes(bd, v2 & ~v1),
+                    fq=fq, qids=self.active_qids(bd, fq),
+                    tiles=runner._mma_tiles)
+
+    def active_qids(self, bd, fq):
+        """The bucket of the VSSs active on the frontier tiles ``fq``,
+        padded with the pad VSS, as the serve engine's queued level takes
+        it."""
+        np = self.np
         s1 = fq.shape[0]
         active = (fq.reshape(s1, -1) != 0).any(dim=1).cpu().numpy()
         act = self.blest.expand_active_sets(bd.real_ptrs,
@@ -1252,8 +1398,50 @@ class Smoke:
         qids = np.full(self.blest.bucket_size(act.size), bd.num_vss,
                        np.int32)
         qids[: act.size] = act
-        return dict(v1=v1, fp=self.msbfs.frontier_planes(bd, v2 & ~v1),
-                    fq=fq, qids=self.t(qids), tiles=runner._mma_tiles)
+        return self.t(qids)
+
+    def serve_cells(self, bd, v1, fp, fq, qids, tiles):
+        """Kernels 8-10's (args, bytes, operations, rate): the fused
+        levels on (v1, fp), the queued pull over ``qids`` on ``fq``.  The
+        fused kernels load the int32 row of a slot only where its pulled
+        word is nonzero, so only those slots' rows are counted (found from
+        the unfused pulls, outside any counted run); the queued pull reads
+        the mask row and v2r entry of each distinct id once."""
+        torch, ops = self.torch, self.ops
+        n_v, tau = bd.masks.shape
+        s1, sigma, kw = fp.shape
+        n_q = tiles.a_planes.shape[0]
+        b_q = qids.numel()
+        distinct = torch.unique(qids)
+        n_u = int(distinct.numel())
+        parents = int(torch.unique(bd.v2r.index_select(0, distinct)).numel())
+        vbytes = 2 * 4 * v1.numel()
+
+        def live(words):  # slots with a nonzero pulled word
+            return int((words.reshape(-1, kw) != 0).any(dim=1).sum())
+
+        live8 = live(ops.pull_ms_packed(bd.masks, fp, bd.v2r, sigma=sigma))
+        live10 = live(ops.pull_mma_ms_packed(tiles.a_planes, fp, tiles.v2r,
+                                             sigma=sigma))
+        log(f"fused levels' slots with a nonzero word: {live8} (selective "
+            f"OR), {live10} (MMA) of {n_v * tau}")
+        return {  # the fused kernels read int32 rows
+            "pull_scatter_ms_packed": (
+                (v1, bd.masks, fp, bd.v2r, bd.rows32),
+                n_v * tau + 4 * live8 + 4 * s1 * sigma * kw + 4 * n_v
+                + vbytes,
+                2 * n_v * tau * sigma * kw + n_v * tau * kw, ALU_OPS_PER_S),
+            "pull_ms_packed_queued": (
+                (bd.masks, fq, bd.v2r, qids),
+                4 * b_q + n_u * (tau + 4) + 4 * parents * sigma * kw
+                + 4 * b_q * tau * kw,
+                2 * b_q * tau * sigma * kw, ALU_OPS_PER_S),
+            "pull_scatter_mma_ms_packed": (
+                (v1, tiles.a_planes, fp, tiles.v2r, bd.rows32),
+                n_q * tau * sigma + 4 * live10 + 4 * s1 * sigma * kw
+                + 4 * n_q + vbytes,
+                2 * n_q * tau * sigma * kw * 32, INT8_MMA_OPS_PER_S),
+        }
 
     def production_serve_kernels(self, bd, packed_srcs, counts):
         """Equality, times and bounds of kernels 8-10 at the shapes of
@@ -1264,51 +1452,21 @@ class Smoke:
         v1, fp, fq, qids, tiles = (x["v1"], x["fp"], x["fq"], x["qids"],
                                    x["tiles"])
         n_v, tau = bd.masks.shape
-        s1, sigma, kw = fp.shape
-        n_q = tiles.a_planes.shape[0]
+        sigma, kw = fp.shape[1:]
         b_q = qids.numel()
-        parents = int(torch.unique(bd.v2r.index_select(0, qids)).numel())
-        vbytes = 2 * 4 * v1.numel()
-        cells = {  # the fused kernels read int32 rows
-            "pull_scatter_ms_packed": (
-                (v1, bd.masks, fp, bd.v2r, bd.rows32),
-                n_v * tau + 4 * n_v * tau + 4 * s1 * sigma * kw + 4 * n_v
-                + vbytes,
-                2 * n_v * tau * sigma * kw + n_v * tau * kw, ALU_OPS_PER_S),
-            "pull_ms_packed_queued": (
-                (bd.masks, fq, bd.v2r, qids),
-                b_q * tau + 8 * b_q + 4 * parents * sigma * kw
-                + 4 * b_q * tau * kw,
-                2 * b_q * tau * sigma * kw, ALU_OPS_PER_S),
-            "pull_scatter_mma_ms_packed": (
-                (v1, tiles.a_planes, fp, tiles.v2r, bd.rows32),
-                n_q * tau * sigma + 4 * n_q * tau + 4 * s1 * sigma * kw
-                + 4 * n_q + vbytes,
-                2 * n_q * tau * sigma * kw * 32, INT8_MMA_OPS_PER_S),
-        }
+        cells = self.serve_cells(bd, v1, fp, fq, qids, tiles)
         rows_out = []
         for name, (args, nbytes, nops, peak) in cells.items():
             k = self.kernels[name]
             what = (f"production shapes (N_v={n_v}, tau={tau}, "
                     f"kappa={32 * kw}" + (f", B={b_q})" if "queued" in name
                                           else ")"))
-            self.same(name, k["fn"](*args), self.chunked(name, args), what)
-            ms_ = self.time_ms(lambda: k["fn"](*args))
-            plain_ms = self.time_ms(lambda: self.chunked(name, args),
-                                    iters=2, warmup=1)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = nops / peak * 1e3
+            row = self.kernel_row(name, args, nbytes, nops, peak, None, what)
             rows_out.append({
                 "name": name, "route": "cuda", "source": k["source"],
                 "replaces": k["replaces"], "launches": counts[name],
-                "max_abs_err": k["max_abs_err"], "ms": ms_,
-                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None,
+                "max_abs_err": k["max_abs_err"], **row, "library_ms": None,
             })
-            log(f"{name}: {ms_:.4f} ms (plain {plain_ms:.3f}, bound "
-                f"{max(t_bytes, t_ops):.4f} from {nbytes} bytes, {nops} "
-                f"operations) at {what}")
         runners = {lay: self.bfs_engine._LaneRunner(bd, 32 * kw, layout=lay,
                                                     mma_tiles=tiles)
                    for lay in ("packed", "mma")}
@@ -1362,6 +1520,7 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
     log("phase 2: kernels against their plain versions over the shape pool")
     smoke.kernel_pool()
     smoke.ms_kernel_pool()
+    smoke.packed_runs_pool()
     smoke.serve_kernel_pool()
 
     log(f"phase 3: main path, kron scale {kron_scale}")

@@ -16,15 +16,18 @@
 // consecutive words, and reads each VSS's small parent frontier tile through
 // v2r itself, as the TPU kernels' index maps do.  The ragged edge is masked
 // by the loop bounds; nothing is padded.  sigma <= 8 (masks are bytes).
+// The packed gather pull is the dense instance of ms_pull.cuh's template
+// (blest_serve.cu has the queued one).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ms_pull.cuh"
 #include "ms_words.cuh"
 
 namespace {
 
-constexpr int kTileThreads = 128;  // one block per VSS tile
+constexpr int kTileThreads = 128;  // pull_mma_ms_packed: a block per VSS
 // pull_ms's launch geometry, here alone: 8 warps a block; a block takes a
 // run of VSSs of kPullSlots slots (16 VSSs at tau = 128), fewer where their
 // frontier tiles would pass kPullSmem bytes (at least one VSS).
@@ -204,31 +207,6 @@ __global__ void __launch_bounds__(kPullThreads)
   }
 }
 
-// Replaces repro/kernels/pull_ms_packed.py::pull_ms_packed (Pallas: one VSS
-// per grid step, the parent's (sigma, kw) word tile through a scalar-prefetch
-// index map, sigma selective ORs).  One block per VSS q, one thread per
-// output word (j, w):
-//   marks[q, j, w] = OR_{b < sigma : bit_b(masks[q, j])} f[v2r[q], b, w]
-// Bound: bytes (the marks written).  Consecutive threads write consecutive
-// words; the parent tile (sigma * kw words) is read through the L1 cache
-// by all tau slots of the VSS; a zero mask reads no frontier word.
-__global__ void pull_ms_packed_kernel(const uint8_t* __restrict__ masks,
-                                      const uint32_t* __restrict__ f,
-                                      const int32_t* __restrict__ v2r,
-                                      uint32_t* __restrict__ marks, int tau,
-                                      int sigma, int kw) {
-  const int64_t q = blockIdx.x;
-  const uint32_t* fq = f + static_cast<int64_t>(v2r[q]) * sigma * kw;
-  const unsigned sigma_bits = (1u << sigma) - 1u;
-  const int words = tau * kw;
-  uint32_t* out = marks + q * words;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) {
-    const int j = i / kw;
-    out[i] = blest::or_pull_word(masks[q * tau + j] & sigma_bits, fq, kw,
-                                 i % kw);
-  }
-}
-
 // Replaces repro/kernels/pull_mma_ms_packed.py::pull_mma_ms_packed (Pallas:
 // per grid step a batched (block, tau, sigma) x (block, sigma, kappa) int8
 // product on the MXU over frontier tiles that XLA pre-gathered, then the
@@ -403,12 +381,15 @@ int blest_pull_ms(const void* masks, const void* f_planes, const void* v2r,
 int blest_pull_ms_packed(const void* masks, const void* f, const void* v2r,
                          void* marks, int64_t n_q, int tau, int sigma, int kw,
                          void* stream) {
-  pull_ms_packed_kernel<<<static_cast<unsigned>(n_q), kTileThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(masks), static_cast<const uint32_t*>(f),
-      static_cast<const int32_t*>(v2r), static_cast<uint32_t*>(marks), tau,
-      sigma, kw);
-  return static_cast<int>(cudaGetLastError());
+  return blest::launch_pull_ms_packed<false>(masks, f, v2r, nullptr, marks,
+                                             n_q, tau, sigma, kw, stream);
+}
+
+// The run of VSSs a block of either packed pull takes over n_q VSSs
+// (ms_pull.cuh).
+int blest_packed_vss_per_block(int64_t n_q, int tau, int sigma, int kw) {
+  if (n_q < 1 || tau < 1 || sigma < 1 || sigma > 8 || kw < 1) return 0;
+  return blest::packed_vss_per_block(n_q, tau, sigma, kw);
 }
 
 int blest_pull_mma_ms_packed(const void* a_planes, const void* f,

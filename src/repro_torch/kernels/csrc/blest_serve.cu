@@ -7,17 +7,18 @@
 // with a plain C interface, loaded with ctypes.  Every entry point takes
 // device pointers and a cudaStream_t, launches on that stream, allocates
 // nothing, does not synchronise, and returns the launch's cudaError_t so
-// that the Python wrapper can raise on a refused launch.  The per-word code
-// is that of blest_ms.cu (ms_words.cuh).
+// that the Python wrapper can raise on a refused launch.  The queued pull
+// is the queued instance of ms_pull.cuh's template (blest_ms.cu has the
+// dense one); the MMA word code is ms_words.cuh's, shared with blest_ms.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ms_pull.cuh"
 #include "ms_words.cuh"
 
 namespace {
 
-constexpr int kTileThreads = 128;  // one block per queued VSS
 // The fused levels' launch geometry, here alone: a thread per slot, 8
 // warps; a block takes a run of VSSs of kFusedSlots slots (32 VSSs at
 // tau = 128), fewer where their frontier tiles would pass kFusedSmem bytes;
@@ -268,33 +269,6 @@ int launch_pull_scatter(void* out, const void* lead, const void* f,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Replaces repro/kernels/pull_ms_packed_queued.py::pull_ms_packed_queued
-// (Pallas: one grid step per queued VSS, its mask row and its parent's
-// frontier tile selected by scalar-prefetched index maps through qids and
-// v2r[qids]).  Here block i loads q = qids[i] and v2r[q] itself (the double
-// indirection), then one thread per output word (j, w):
-//   marks[i, j, w] = OR_{b : bit_b(masks[q, j])} f[v2r[q], b, w]
-// Bound: bytes (the (B, tau, kw) marks written).  Bucket padding names the
-// pad VSS (zero masks), so its rows read no frontier word and write zeros.
-__global__ void pull_ms_packed_queued_kernel(const uint8_t* __restrict__ masks,
-                                             const uint32_t* __restrict__ f,
-                                             const int32_t* __restrict__ v2r,
-                                             const int32_t* __restrict__ qids,
-                                             uint32_t* __restrict__ marks,
-                                             int tau, int sigma, int kw) {
-  const int64_t i = blockIdx.x;
-  const int64_t q = qids[i];
-  const uint32_t* fq = f + static_cast<int64_t>(v2r[q]) * sigma * kw;
-  const unsigned sigma_bits = (1u << sigma) - 1u;
-  const int words = tau * kw;
-  uint32_t* out = marks + i * words;
-  for (int k = threadIdx.x; k < words; k += blockDim.x) {
-    const int j = k / kw;
-    out[k] = blest::or_pull_word(masks[q * tau + j] & sigma_bits, fq, kw,
-                                 k % kw);
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -324,12 +298,8 @@ int blest_pull_ms_packed_queued(const void* masks, const void* f,
                                 const void* v2r, const void* qids, void* marks,
                                 int64_t b, int tau, int sigma, int kw,
                                 void* stream) {
-  pull_ms_packed_queued_kernel<<<static_cast<unsigned>(b), kTileThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(masks), static_cast<const uint32_t*>(f),
-      static_cast<const int32_t*>(v2r), static_cast<const int32_t*>(qids),
-      static_cast<uint32_t*>(marks), tau, sigma, kw);
-  return static_cast<int>(cudaGetLastError());
+  return blest::launch_pull_ms_packed<true>(masks, f, v2r, qids, marks, b,
+                                            tau, sigma, kw, stream);
 }
 
 const char* blest_error_string(int err) {

@@ -1,25 +1,14 @@
-// One packed output word of the multi-source pulls, shared by the kernels of
-// blest_ms.cu and blest_serve.cu.  A word holds 32 lanes (BFSs) of one slot
-// (slice) of a VSS; fq points at the parent slice set's (sigma, kw) frontier
-// words (row stride kw), w is the word's index in [0, kw).  sigma <= 8
-// (masks are bytes).
+// One packed output word of the binary-MMA pulls, shared by the kernels of
+// blest_ms.cu (kernel 7) and blest_serve.cu (kernel 10).  A word holds 32
+// lanes (BFSs) of one slot (slice) of a VSS; fq points at the parent slice
+// set's (sigma, kw) frontier words (row stride kw), w is the word's index in
+// [0, kw).  sigma <= 8.  The selective-OR pull is ms_pull.cuh's.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace blest {
-
-// The selective-OR pull of kernels/pull_ms_packed.py:
-//   word = OR_{b : bit_b(m)} fq[b, w]
-// Zero bits read nothing, so a zero mask costs no frontier load.
-__device__ __forceinline__ uint32_t or_pull_word(unsigned m,
-                                                 const uint32_t* fq, int kw,
-                                                 int w) {
-  uint32_t acc = 0;
-  for (; m; m &= m - 1) acc |= fq[(__ffs(m) - 1) * kw + w];
-  return acc;
-}
 
 // A slot's int8 MMA weights aj[0..sigma) as the bytes of one 64-bit row
 // (weight b in byte b; bytes past sigma are 0).  sigma == 8 reads the row in

@@ -7,7 +7,10 @@ For one VSS, slice j with sigma-bit mask m pulls
 
 i.e. at most sigma selective ORs of kappa/32-word rows, with no unpacking
 and 1/8 of the byteplane pull's frontier bytes.  Words are ``torch.int32``
-tensors holding uint32 bit patterns (``uint32_t`` in the kernel).
+tensors holding uint32 bit patterns (``uint32_t`` in the kernel).  The
+kernel is the dense instance of ``csrc/ms_pull.cuh``'s template (a block
+per run of VSSs, 16-byte stores), whose queued instance is
+:mod:`repro_torch.kernels.pull_ms_packed_queued`.
 :func:`pull_ms_packed` takes CUDA tensors only and counts its launches in
 ``pull_ms_packed.launches``; :mod:`repro_torch.kernels.ops` sends CPU
 tensors to :func:`pull_ms_packed_ref`.
@@ -43,6 +46,14 @@ def pull_ms_packed(masks: torch.Tensor, f_packed: torch.Tensor,
 
 
 pull_ms_packed.launches = 0
+
+
+def packed_vss_per_block(n_q: int, tau: int, sigma: int, kw: int) -> int:
+    """The run of VSSs a block of either packed pull takes over ``n_q``
+    VSSs.  The launch geometry lives in ``csrc/ms_pull.cuh`` alone, so this
+    asks the built library."""
+    return _build.library("blest_ms").blest_packed_vss_per_block(
+        n_q, tau, sigma, kw)
 
 
 def pull_ms_packed_ref(masks: torch.Tensor, f_tiles: torch.Tensor,

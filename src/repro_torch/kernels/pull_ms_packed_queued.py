@@ -9,9 +9,11 @@ VSS id ``num_vss`` (zero masks).  For each i, with ``q = qids[i]``:
 
     marks[i, j, w] = OR_{b : masks[q, j]_b = 1}  F_packed[v2r[q], b, w]
 
-The kernel loads ``qids[i]`` and ``v2r[q]`` itself (the TPU kernel's
-scalar-prefetched double indirection), so neither the masks nor the
-frontier are gathered first.  Words are ``torch.int32`` bit patterns.
+The kernel is the queued instance of ``csrc/ms_pull.cuh``'s template (a
+block per run of queued VSSs); it loads ``qids[i]`` and ``v2r[q]`` itself
+(the TPU kernel's scalar-prefetched double indirection), so neither the
+masks nor the frontier are gathered first.  Words are ``torch.int32`` bit
+patterns.
 :func:`pull_ms_packed_queued` takes CUDA tensors only and counts its launches
 in ``pull_ms_packed_queued.launches``; :mod:`repro_torch.kernels.ops` sends
 CPU tensors to :func:`pull_ms_packed_queued_ref`.

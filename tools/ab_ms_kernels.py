@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
-"""Old against new: the multi-source OR-scatter and byteplane pull on one
-NVIDIA GPU.
+"""Old against new: the multi-source kernels of ``csrc/blest_ms.cu`` and
+``csrc/blest_serve.cu`` on one NVIDIA GPU.
 
     mkdir -p build/ab/parent
     git archive <commit> | tar -x -C build/ab/parent
     python3 tools/ab_ms_kernels.py --parent build/ab/parent
         [--kron-scale 22] [--road-scale 20] [--road-level 1000]
 
-Compares ``scatter_or`` and ``pull_ms`` of ``csrc/blest_ms.cu`` in an
-earlier commit unpacked under ``--parent`` (``old``) with the checkout's
-(``new``), in one process on one card, every comparison in turns (old,
-new, new, old), with CUDA events:
+Compares ``scatter_or``, ``pull_ms``, ``pull_ms_packed`` (kernel 5) and
+``pull_ms_packed_queued`` (kernel 9) of an earlier commit unpacked under
+``--parent`` (``old``) with the checkout's (``new``), in one process on one
+card, every comparison in turns (old, new, new, old), with CUDA events:
 
 1. Each kernel alone, through its C entry point, as its wrapper calls it
    (a timed call is a fresh output, the copy of ``dest`` for the scatter,
@@ -26,22 +26,30 @@ new, new, old), with CUDA events:
    the scatter also runs as ``new_no_atomics`` (the checkout's source with
    every ``atomicOr`` behind a device flag that stays 0), which shows what
    the L2 atomics cost; its output is not compared.
+   ``pull_ms_packed`` on the packed states (kron two levels in, road
+   ``--road-level`` levels in) and ``pull_ms_packed_queued`` over the VSSs
+   active on the frontier one level from the 256 kron sources (the state of
+   ``chip_smoke.py``'s kernel row) and on road's state; both also timed as
+   the device time of a replayed CUDA graph of the same calls
+   (``chip_smoke.Smoke.time_graph_ms``), which leaves the host out.
+   At kron (kw = 8) both packed pulls also run as ``new_words`` (the
+   checkout's ``ms_pull.cuh`` with the four-word item shape ``kQuad``
+   swapped for the word-stepped ``kWords``), in turns with ``new``.
 2. One dense byteplane and one dense packed multi-source level at the kron
-   states, stage by stage (``chip_smoke.Smoke.ms_level_cost``), with the
-   old kernels swapped into ``repro_torch.kernels.ops`` against the new.
+   states, stage by stage (``chip_smoke.Smoke.ms_level_cost``), and the
+   serve engine's queued level (the queued pull, then the scatter) at the
+   kron and road states, with the old kernels swapped into
+   ``repro_torch.kernels.ops`` against the new.
 3. ``PackedMsBfs.run`` (gather) on road at kappa = 32 from its 32 sources
    to the end, with either kernels, every result equal.
-4. The checkout's ``pull_ms_packed`` and ``pull_ms_packed_queued`` at the
-   road state alone, with their bounds (the other multi-source kernels'
-   time at road's shapes, where most of their launches are).
 
-Prints ptxas's registers of both kernels of each form, the card's name and
+Prints ptxas's registers of both forms of each kernel, the card's name and
 power limit as nvidia-smi gives them and, last, one JSON line of every
 time, bound and count.  Bounds: bytes moved once over 3.35 TB/s, or
 operations over the peak rate, the larger (``chip_smoke``'s rule); the
 scatter reads the rows of the elements with a nonzero word only, at the
-width the form reads.  Exits 1 without a CUDA device or when outputs
-differ.
+width the form reads; the queued pull reads the tiles of the distinct
+parents of its ids.  Exits 1 without a CUDA device or when outputs differ.
 """
 from __future__ import annotations
 
@@ -60,7 +68,12 @@ CSRC_REL = pathlib.Path("src/repro_torch/kernels/csrc")
 OUT_DIR = ROOT / "build" / "ab_ms"
 FORMS = ("old", "new")
 TURNS = ("old", "new", "new", "old")
-KERNEL_NAMES = ("pull_ms_kernel", "scatter_or_kernel")
+ITEM_TURNS = ("new", "new_words", "new_words", "new")
+# new_words: the packed pulls' launcher never picks kQuad
+QUAD = ("auto kernel = kw % 4 == 0 ? pull_ms_packed_run<kQueued, kQuad>",
+        "auto kernel = false ? pull_ms_packed_run<kQueued, kQuad>")
+KERNEL_NAMES = ("pull_ms_kernel", "scatter_or_kernel", "pull_ms_packed")
+LIBS = ("blest_ms", "blest_serve")
 
 
 def fail(msg: str) -> None:
@@ -78,45 +91,60 @@ def rows_width(src: pathlib.Path) -> int:
 
 
 def build(parent: pathlib.Path, flags) -> dict:
-    """One nvcc per form, both at once (headers from the source's own
-    directory); prints ptxas's lines on the two kernels; loads each."""
+    """One nvcc per form and library, all at once (headers from the
+    source's own directory first); prints ptxas's lines on the compared
+    kernels; loads each."""
     from repro_torch.kernels import _build
 
-    srcs = {"old": parent / CSRC_REL / "blest_ms.cu",
-            "new": ROOT / CSRC_REL / "blest_ms.cu",
-            "new_no_atomics": OUT_DIR / "new_no_atomics" / "blest_ms.cu"}
+    srcs = {(form, lib): tree / CSRC_REL / f"{lib}.cu"
+            for form, tree in (("old", parent), ("new", ROOT))
+            for lib in LIBS}
+    nat = ("new_no_atomics", "blest_ms")
+    srcs[nat] = OUT_DIR / "new_no_atomics" / "blest_ms.cu"
     anchor = '#include "ms_words.cuh"\n'
-    srcs["new_no_atomics"].parent.mkdir(parents=True, exist_ok=True)
-    srcs["new_no_atomics"].write_text(
-        srcs["new"].read_text().replace("atomicOr(", "ab_or(")
+    srcs[nat].parent.mkdir(parents=True, exist_ok=True)
+    srcs[nat].write_text(
+        srcs["new", "blest_ms"].read_text().replace("atomicOr(", "ab_or(")
         .replace(anchor, anchor + NO_ATOMICS))
+    words_dir = OUT_DIR / "new_words"
+    words_dir.mkdir(parents=True, exist_ok=True)
+    header = (ROOT / CSRC_REL / "ms_pull.cuh").read_text()
+    if QUAD[0] not in header:
+        fail("ms_pull.cuh: the item-shape choice to rewrite is not there")
+    (words_dir / "ms_pull.cuh").write_text(header.replace(*QUAD))
+    for lib in LIBS:  # "ms_pull.cuh" resolves to the copy beside them
+        srcs["new_words", lib] = words_dir / f"{lib}.cu"
+        srcs["new_words", lib].write_text(srcs["new", lib].read_text())
     procs = {}
-    for name, src in srcs.items():
-        lib = OUT_DIR / f"lib{name}.so"
+    for (form, lib), src in srcs.items():
+        out = OUT_DIR / f"lib{lib}-{form}.so"
         cmd = [_build.nvcc(), *flags, "-Xptxas", "-v", "-I",
-               str(ROOT / CSRC_REL), "-o", str(lib), str(src)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
+               str(ROOT / CSRC_REL), "-o", str(out), str(src)]
+        procs[form, lib] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)
     forms = {}
-    for name, proc in procs.items():
+    for (form, lib), proc in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
-            fail(f"nvcc {name} (exit {proc.returncode}):\n{out}")
+            fail(f"nvcc {form} {lib} (exit {proc.returncode}):\n{out}")
         lines = out.splitlines()
         for i, line in enumerate(lines):
             if ("Compiling entry" in line
                     and any(k in line for k in KERNEL_NAMES)):
                 info = [x.strip() for x in lines[i + 1:i + 4]
                         if "Used" in x or "spill" in x]
-                log(f"ptxas {name}: {line.strip()} | {' | '.join(info)}")
-        lib = ctypes.CDLL(str(OUT_DIR / f"lib{name}.so"))
-        for fn in ("blest_pull_ms", "blest_scatter_or"):
-            argtypes, restype = _build.SIGNATURES["blest_ms"][fn]
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        forms[name] = {"lib": lib, "rows_width": rows_width(srcs[name])}
-        log(f"{name}: {srcs[name]} reads {forms[name]['rows_width']}-byte "
-            "rows")
+                log(f"ptxas {form}: {line.strip()} | {' | '.join(info)}")
+        handle = ctypes.CDLL(str(OUT_DIR / f"lib{lib}-{form}.so"))
+        for fn, (argtypes, restype) in _build.SIGNATURES[lib].items():
+            if hasattr(handle, fn):
+                getattr(handle, fn).argtypes = argtypes
+                getattr(handle, fn).restype = restype
+        forms.setdefault(form, {})[lib] = handle
+        if lib == "blest_ms":
+            forms[form]["rows_width"] = rows_width(srcs[form, lib])
+            log(f"{form}: {srcs[form, lib]} reads "
+                f"{forms[form]['rows_width']}-byte rows")
     return forms
 
 
@@ -149,7 +177,7 @@ class Kernels:
         marks = torch.empty((n_q, tau, kappa), dtype=torch.uint8,
                             device=masks.device)
         stream = torch.cuda.current_stream().cuda_stream
-        self.check(form, "pull_ms", self.forms[form]["lib"].blest_pull_ms(
+        self.check(form, "pull_ms", self.forms[form]["blest_ms"].blest_pull_ms(
             masks.data_ptr(), f.data_ptr(), v2r.data_ptr(), marks.data_ptr(),
             n_q, tau, sigma, kappa, stream))
         return marks
@@ -160,10 +188,35 @@ class Kernels:
         out = dest.clone(memory_format=torch.contiguous_format)
         stream = torch.cuda.current_stream().cuda_stream
         self.check(form, "scatter_or",
-                   self.forms[form]["lib"].blest_scatter_or(
+                   self.forms[form]["blest_ms"].blest_scatter_or(
                        out.data_ptr(), rows.data_ptr(), marks.data_ptr(),
                        marks.shape[0], marks.shape[1], stream))
         return out
+
+    def pull_ms_packed(self, form, masks, f, v2r, *, sigma=8):
+        torch = self.torch
+        n_q, tau = masks.shape
+        marks = torch.empty((n_q, tau, f.shape[2]), dtype=torch.int32,
+                            device=masks.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        self.check(form, "pull_ms_packed",
+                   self.forms[form]["blest_ms"].blest_pull_ms_packed(
+                       masks.data_ptr(), f.data_ptr(), v2r.data_ptr(),
+                       marks.data_ptr(), n_q, tau, sigma, f.shape[2], stream))
+        return marks
+
+    def pull_ms_packed_queued(self, form, masks, f, v2r, qids, *, sigma=8):
+        torch = self.torch
+        b, tau = qids.shape[0], masks.shape[1]
+        marks = torch.empty((b, tau, f.shape[2]), dtype=torch.int32,
+                            device=masks.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        self.check(form, "pull_ms_packed_queued",
+                   self.forms[form]["blest_serve"].blest_pull_ms_packed_queued(
+                       masks.data_ptr(), f.data_ptr(), v2r.data_ptr(),
+                       qids.data_ptr(), marks.data_ptr(), b, tau, sigma,
+                       f.shape[2], stream))
+        return marks
 
     def into_ops(self, form):
         """Swaps ``form``'s kernels into repro_torch.kernels.ops."""
@@ -171,20 +224,32 @@ class Kernels:
         ops.pull_ms = lambda m, f, v2r, *, sigma=8: self.pull_ms(
             form, m, f, v2r, sigma=sigma)
         ops.scatter_or = lambda d, r, m: self.scatter_or(form, d, r, m)
+        ops.pull_ms_packed = lambda m, f, v2r, *, sigma=8: \
+            self.pull_ms_packed(form, m, f, v2r, sigma=sigma)
+        ops.pull_ms_packed_queued = lambda m, f, v2r, q, *, sigma=8: \
+            self.pull_ms_packed_queued(form, m, f, v2r, q, sigma=sigma)
 
 
-def in_turns(smoke, fn, what) -> dict:
-    """``fn(form)`` timed in turns; the forms' outputs must be equal."""
+def in_turns(smoke, fn, what, graph=False, turns=TURNS) -> dict:
+    """``fn(form)`` timed in ``turns``; the forms' outputs must be equal.
+    With ``graph``, each turn also takes the device time of a replayed
+    CUDA graph of the calls (``<form>_graph``)."""
     torch = smoke.torch
-    want = fn("old")
-    got = fn("new")
+    forms = turns[:2]
+    want = fn(forms[0])
+    got = fn(forms[1])
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        fail(f"{what}: new differs from old")
+        fail(f"{what}: {forms[1]} differs from {forms[0]}")
     del got, want
-    times = {f: [] for f in FORMS}
-    for form in TURNS:
+    times = {f: [] for f in forms}
+    if graph:
+        times.update({f"{f}_graph": [] for f in forms})
+    for form in turns:
         times[form].append(smoke.time_ms(lambda f=form: fn(f)))
+        if graph:
+            times[f"{form}_graph"].append(smoke.time_graph_ms(
+                lambda f=form: fn(f), iters=10))
     log(f"{what}: {times}")
     return times
 
@@ -257,34 +322,63 @@ def queued_scatter(smoke, k, forms, bd, v, fp, what) -> dict:
     return row
 
 
-def packed_pulls(smoke, bd, fp, what) -> dict:
-    """The checkout's pull_ms_packed and pull_ms_packed_queued on the
-    frontier tiles ``fp``, with their byte bounds (chip_smoke's)."""
+def packed_pull_cell(smoke, k, bd, fp, what, turns=TURNS) -> dict:
+    """Kernel 5, old against new, on the frontier tiles ``fp``, with its
+    byte bound: masks, tiles and v2r read, marks written."""
     from chip_smoke import HBM_BYTES_PER_S
-    ops, torch = smoke.ops, smoke.torch
     n_v, tau = bd.masks.shape
+    s1, sigma, kw = fp.shape
+    nbytes = n_v * tau + 4 * s1 * sigma * kw + 4 * n_v + 4 * n_v * tau * kw
+    row = {"n_q": n_v, "tau": tau, "kw": kw, "bytes": nbytes,
+           "zero_mask_share": float((bd.masks == 0).double().mean()),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    row["ms"] = in_turns(smoke, lambda form: k.pull_ms_packed(
+        form, bd.masks, fp, bd.v2r, sigma=sigma), f"pull_ms_packed {what}",
+        graph=True, turns=turns)
+    return row
+
+
+def queued_pull_cell(smoke, k, bd, fp, what, turns=TURNS) -> dict:
+    """Kernel 9, old against new, over the VSSs active on ``fp``, with its
+    byte bound: qids, the distinct ids' masks and v2r entries, their
+    distinct parents' tiles read, marks written."""
+    from chip_smoke import HBM_BYTES_PER_S
+    tau = bd.masks.shape[1]
     s1, sigma, kw = fp.shape
     qids, n_act = active_qids(smoke, bd, fp)
     b_q = qids.numel()
-    parents = int(torch.unique(bd.v2r.index_select(0, qids)).numel())
-    cells = {
-        "pull_ms_packed": (
-            lambda: ops.pull_ms_packed(bd.masks, fp, bd.v2r, sigma=sigma),
-            n_v * tau + 4 * s1 * sigma * kw + 4 * n_v + 4 * n_v * tau * kw),
-        "pull_ms_packed_queued": (
-            lambda: ops.pull_ms_packed_queued(bd.masks, fp, bd.v2r, qids,
-                                              sigma=sigma),
-            b_q * tau + 8 * b_q + 4 * parents * sigma * kw
-            + 4 * b_q * tau * kw),
-    }
-    out = {}
-    for name, (fn, nbytes) in cells.items():
-        out[name] = {"ms": smoke.time_ms(fn),
-                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                     "bytes": nbytes}
-        log(f"{name} {what}: {out[name]}")
-    out["pull_ms_packed_queued"]["active_vss"] = n_act
-    return out
+    distinct = smoke.torch.unique(qids)
+    n_u = int(distinct.numel())
+    parents = int(smoke.torch.unique(bd.v2r.index_select(0, distinct))
+                  .numel())
+    nbytes = 4 * b_q + n_u * (tau + 4) + 4 * parents * sigma * kw \
+        + 4 * b_q * tau * kw
+    row = {"b": b_q, "active_vss": n_act, "parents": parents, "tau": tau,
+           "kw": kw, "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    row["ms"] = in_turns(smoke, lambda form: k.pull_ms_packed_queued(
+        form, bd.masks, fp, bd.v2r, qids, sigma=sigma),
+        f"pull_ms_packed_queued {what} ({n_act} active VSSs, B={b_q})",
+        graph=True, turns=turns)
+    return row
+
+
+def queued_level(smoke, k, bd, v, fp, what) -> dict:
+    """The serve engine's queued level (``_LaneRunner._pull_scatter_queued``
+    on the packed substrate: kernel 9, then ``scatter_or``) over the VSSs
+    active on ``fp``, with either tree's kernels, in turns."""
+    ops = smoke.ops
+    qids, n_act = active_qids(smoke, bd, fp)
+    rows = bd.rows32.view(-1, bd.tau).index_select(0, qids).reshape(-1)
+    k.add_rows(rows.long(), rows)
+
+    def level(form):
+        k.into_ops(form)
+        marks = ops.pull_ms_packed_queued(bd.masks, fp, bd.v2r, qids,
+                                          sigma=bd.sigma)
+        return ops.scatter_or(v, rows, marks.reshape(-1, v.shape[1]))
+    return {"active_vss": n_act, "b": qids.numel(),
+            "ms": in_turns(smoke, level, f"queued level {what}")}
 
 
 def packed_state(smoke, bd, srcs, level):
@@ -315,6 +409,17 @@ def kron(smoke, k, forms, scale) -> dict:
     del marks
     out["scatter_or_queued"] = queued_scatter(smoke, k, forms, bd, v2, fp,
                                               "kron")
+    out["pull_ms_packed"] = packed_pull_cell(smoke, k, bd, fp, "kron")
+    out["pull_ms_packed_items"] = packed_pull_cell(
+        smoke, k, bd, fp, "kron, kQuad against kWords", ITEM_TURNS)
+    # the queued pull and level on chip_smoke's state: one level in
+    v1, fq = packed_state(smoke, bd, psrcs, 1)
+    out["pull_ms_packed_queued"] = queued_pull_cell(smoke, k, bd, fq,
+                                                    "kron L1")
+    out["pull_ms_packed_queued_items"] = queued_pull_cell(
+        smoke, k, bd, fq, "kron L1, kQuad against kWords", ITEM_TURNS)
+    out["queued_level"] = queued_level(smoke, k, bd, v1, fq, "kron L1")
+    del v1, fq
     # dense levels with either kernels, stage by stage
     runner = smoke.msbfs_packed.PackedMsBfs(bd, kernel="mma")
     k.add_rows(bd.row_ids.reshape(-1), bd.rows32)
@@ -351,7 +456,12 @@ def road(smoke, k, forms, scale, level) -> dict:
     del marks
     out["scatter_or_queued"] = queued_scatter(smoke, k, forms, bd, v, fp,
                                               f"road L{level}")
-    out["packed_pulls"] = packed_pulls(smoke, bd, fp, f"road L{level}")
+    out["pull_ms_packed"] = packed_pull_cell(smoke, k, bd, fp,
+                                             f"road L{level}")
+    out["pull_ms_packed_queued"] = queued_pull_cell(smoke, k, bd, fp,
+                                                    f"road L{level}")
+    out["queued_level"] = queued_level(smoke, k, bd, v, fp,
+                                       f"road L{level}")
     # PackedMsBfs.run to the end with either kernels
     runner = smoke.msbfs_packed.PackedMsBfs(bd)
     k.add_rows(bd.row_ids.reshape(-1), bd.rows32)
@@ -382,7 +492,8 @@ def main(argv=None) -> None:
 
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
-    if not (args.parent / CSRC_REL / "blest_ms.cu").is_file():
+    if not all((args.parent / CSRC_REL / f"{lib}.cu").is_file()
+               for lib in LIBS):
         fail("--parent must name an earlier commit's unpacked tree")
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import chip_smoke
@@ -398,17 +509,19 @@ def main(argv=None) -> None:
     log(f"built in {time.perf_counter() - t0:.1f} s")
     smoke = chip_smoke.Smoke(torch.device("cuda"))
     k = Kernels(smoke, forms)
-    new_ops = (smoke.ops.pull_ms, smoke.ops.scatter_or)
+    names = ("pull_ms", "scatter_or", "pull_ms_packed",
+             "pull_ms_packed_queued")
+    new_ops = {n: getattr(smoke.ops, n) for n in names}
     result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
               "rows_width": {f: forms[f]["rows_width"] for f in FORMS}}
     result[f"kron-{args.kron_scale}"] = kron(smoke, k, forms,
                                              args.kron_scale)
-    smoke.ops.pull_ms, smoke.ops.scatter_or = new_ops
+    vars(smoke.ops).update(new_ops)
     torch.cuda.empty_cache()
     result[f"road-{args.road_scale}"] = road(smoke, k, forms,
                                              args.road_scale,
                                              args.road_level)
-    smoke.ops.pull_ms, smoke.ops.scatter_or = new_ops
+    vars(smoke.ops).update(new_ops)
     print(smi)
     print(json.dumps(result))
 
