@@ -18,9 +18,12 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    (odd and even word counts); for the scatter all-duplicate rows,
    all-zero marks, a suffix from element 1 (marks off 16-byte alignment
    where kw is odd or 2) and a prefix whose word count no warp's run
-   divides; random int8 planes (negative
-   weights) for the MMA pull, and a ragged VSS count that the MMA pull
-   must refuse; the packed pull also on mask bytes with bits above sigma,
+   divides; random int8 planes (negative weights) for both forms of the
+   MMA pull (the launched plane-row instance and the tensor-core form,
+   ``pull_mma_ms_packed_bmma``), and a ragged VSS count that the MMA pull
+   must refuse; ``frontier_sweep`` on 0/1 bytes and on any bytes, from
+   aligned tensors and from views one element in (every input, or the
+   level alone); the packed pull also on mask bytes with bits above sigma,
    all-zero masks; both packed pulls also where a block takes its full run
    of VSSs (tau in {1,2,4,128}, kw in {1,2,3,8}, a ragged last run; the
    queued one over ids repeated in no order).  The serve kernels over the
@@ -37,7 +40,8 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    ``ref_bfs.bfs_levels`` oracle.  Launch counts are zeroed just before and
    read just after; every single-source kernel must have launched.  Then
    each kernel at the production shapes (sigma, tau) = (8, 128) of this
-   graph: equality with its plain version, and times.
+   graph: equality with its plain version, and times (also as a replayed
+   CUDA graph's device time).
 3b. The multi-source path on the same graph, launch counts zeroed first:
    ``Blest.msbfs`` on 64 seeded sources (byteplane, each lane equal to
    ``Blest.bfs``, two lanes to the oracle); ``Blest.closeness(kappa=64)``
@@ -48,21 +52,24 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    multi-source kernel must have launched.  Then each multi-source kernel at
    this graph's shapes (the state two levels from those sources): equality
    with its plain version over the whole array (the plain version runs in
-   chunks of VSSs where its int32 counts would not fit), and times; and one
+   chunks of VSSs where its int32 counts would not fit), and times (the MMA
+   pull also as a replayed CUDA graph's device time, and its tensor-core
+   form held and timed beside it with its mma.sync count and rate); and one
    dense multi-source level, stage by stage, in both layouts.
 4. The high-diameter family: road (2-D grid) scale 20, automatic reorder
    dispatch (RCM), fused and bucketed runs equal to the oracle; one batch of
    32 sources through ``Blest.msbfs`` and ``PackedMsBfs(kernel="gather")``,
    equal in far and reach, two lanes equal to ``Blest.bfs`` (launches
    counted from just before the runs to just after); then their times, and
-   ``pull_ms``, ``scatter_or``, ``pull_ms_packed``, the queued pull over
-   the VSSs active there and the fused dense levels (kernels 8 and 10) at
-   this graph's shapes, ROAD_LEVEL levels from those sources: equality with
-   their plain versions, times (the last four also as the device time of a
-   replayed CUDA graph of the calls, which leaves the host's enqueue cost
-   out), bounds.  Each graph's one dense single-source level also times
-   ``pull_ss_packed`` and ``frontier_sweep`` that way, beside their byte
-   bounds.
+   ``pull_ms``, ``scatter_or``, ``pull_ms_packed``, the MMA pull (both
+   forms), the queued pull over the VSSs active there and the fused dense
+   levels (kernels 8 and 10) at this graph's shapes, ROAD_LEVEL levels from
+   those sources: equality with their plain versions, times (all but the
+   first two also as the device time of a replayed CUDA graph of the calls,
+   which leaves the host's enqueue cost out), bounds.  Each graph's one
+   dense single-source level also times ``pull_ss_packed`` and
+   ``frontier_sweep`` that way, beside their byte bounds, and holds that
+   level's ``frontier_sweep`` against its plain version.
 5. Every family of ``data/graphs.FAMILIES`` at scale 10 with automatic
    dispatch, all 8 combinations equal to the oracle; ``Blest.closeness``
    over all sources (fused and bucketed, both normalisations) against
@@ -90,10 +97,12 @@ Prints, before the last line: the card's name and power limit (as
 nvidia-smi gives them), one JSON line ``{"kernels": [...]}`` (launches on the
 main path; ``launches_kron_road``, the launches of the kron and road paths
 of phases 3, 3b, 4 and 6 together, without the scale-10 families; ms per
-launch, plain version's ms, the bound and what sets it, the library call's
-ms; for the multi-source kernels but ``pull_mma_ms_packed`` also ``road``,
-their ms, graph ms, plain ms and bound at road's shapes ROAD_LEVEL levels
-in), one JSON line
+launch, the single-source kernels' and the MMA pull's graph ms, plain
+version's ms, the bound and what sets it, the library call's ms; for the
+multi-source kernels also ``road``, their ms, graph ms, plain ms and bound
+at road's shapes ROAD_LEVEL levels in; for the MMA pull ``other_form``, its
+tensor-core form's numbers, mma.sync count and rate, at both shapes), one
+JSON line
 ``{"bfs": [...]}`` (ms, edges/s and
 depth per BFS; per-stage ms of one dense level) and one JSON line
 ``{"msbfs": [...]}`` (per multi-source run: graph, layout, kappa, levels,
@@ -160,6 +169,16 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def bmma_count(n_q: int, tau: int, sigma: int, kw: int) -> int:
+    """The mma.sync instructions of kernel 7's tensor-core form over
+    ``n_q`` VSSs (csrc/blest_ms.cu): a block per group of 128 // sigma
+    VSSs, four a frontier word for each M tile of 8 of its slots."""
+    group = 128 // sigma
+    full, rest = divmod(n_q, group)
+    tiles = full * -(-group * tau // 8) + -(-rest * tau // 8)
+    return tiles * 4 * kw
+
+
 def log(msg: str) -> None:
     print(f"[{time.strftime('%H:%M:%S')}] {msg}", flush=True)
 
@@ -218,6 +237,11 @@ class Smoke:
             "pull_mma_ms_packed": dict(
                 fn=mma.pull_mma_ms_packed, source=ms_src,
                 replaces="src/repro/kernels/pull_mma_ms_packed.py:177"),
+            # kernel 7's tensor-core form: on no path, held and timed beside
+            # it (its row's "other_form")
+            "pull_mma_ms_packed_bmma": dict(
+                fn=mma.pull_mma_ms_packed_bmma, source=ms_src,
+                replaces="src/repro/kernels/pull_mma_ms_packed.py:177"),
             "pull_scatter_ms_packed": dict(
                 fn=fused.pull_scatter_ms_packed, source=serve_src,
                 replaces="src/repro/kernels/pull_scatter_ms_packed.py:62"),
@@ -238,6 +262,8 @@ class Smoke:
         self.kernels["pull_mma_ms_packed"]["plain"] = \
             lambda a, f, v2r, sigma=8, block=8: mma.pull_mma_ms_packed_ref(
                 a, f.index_select(0, v2r))
+        self.kernels["pull_mma_ms_packed_bmma"]["plain"] = \
+            self.kernels["pull_mma_ms_packed"]["plain"]
         self.kernels["pull_scatter_ms_packed"]["plain"] = \
             lambda v, m, f, v2r, rows, sigma=8: \
             fused.pull_scatter_ms_packed_ref(v, m, f.index_select(0, v2r),
@@ -361,6 +387,8 @@ class Smoke:
             sigma = (1, 2, 4, 8)[case % 4]
             self.sweep_case(rng, sigma * int(rng.integers(1, 40)), sigma,
                             f"pool case {case}")
+            self.sweep_odd_case(rng, sigma * int(rng.integers(1, 40)), sigma,
+                                f"pool case {case}")
 
     def sweep_inputs(self, rng, n):
         np = self.np
@@ -378,6 +406,27 @@ class Smoke:
         self.same("frontier_sweep", k["fn"](*args, sigma=sigma),
                   k["plain"](*args, sigma=sigma), f"{what} (n={n}, "
                   f"sigma={sigma})")
+
+    def sweep_odd_case(self, rng, n, sigma, what):
+        """frontier_sweep on bytes outside {0, 1} (any uint8, levels over
+        the int32 range), from 16-byte aligned tensors and from views one
+        element into a larger tensor (every input, or the level alone),
+        which the kernel takes vertex by vertex."""
+        np = self.np
+        k = self.kernels["frontier_sweep"]
+        raw = (rng.integers(0, 256, n + 1).astype(np.uint8),
+               rng.integers(0, 256, n + 1).astype(np.uint8),
+               rng.integers(-2**31, 2**31, n + 1, dtype=np.int64)
+               .astype(np.int32))
+        ell = int(rng.integers(-2**31, 2**31))
+        full = [self.t(x) for x in raw]
+        for off, w in (((0, 0, 0), "any bytes"),
+                       ((1, 1, 1), "any bytes, views at element 1"),
+                       ((0, 0, 1), "any bytes, level a view at element 1")):
+            args = [x[o:o + n] for x, o in zip(full, off)]
+            self.same("frontier_sweep", k["fn"](*args, ell, sigma=sigma),
+                      k["plain"](*args, ell, sigma=sigma),
+                      f"{what}, {w} (n={n}, sigma={sigma})")
 
     # --------------------------------------- phase 3: production shapes --
     def production_kernels(self, bd, counts):
@@ -404,6 +453,7 @@ class Smoke:
             self.same(name, k["fn"](*args, **kw), k["plain"](*args, **kw),
                       what)
             ms = self.time_ms(lambda: k["fn"](*args, **kw))
+            graph_ms = self.time_graph_ms(lambda: k["fn"](*args, **kw))
             plain_ms = self.time_ms(lambda: k["plain"](*args, **kw))
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = nops / ALU_OPS_PER_S * 1e3
@@ -411,6 +461,7 @@ class Smoke:
                 "name": name, "route": "cuda", "source": k["source"],
                 "replaces": k["replaces"], "launches": counts[name],
                 "max_abs_err": k["max_abs_err"], "ms": ms,
+                "graph_ms": graph_ms,
                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None,
@@ -457,7 +508,8 @@ class Smoke:
         """Device time of each stage of one dense level (packed pull, the
         graph's own lazy/eager mechanics) at the state ``depth`` levels from
         ``src``, and of the whole level back to back against one level of
-        the fused loop with its per-level flag read (a host sync)."""
+        the fused loop with its per-level flag read (a host sync); the
+        level's frontier_sweep held against its plain version."""
         blest, ops, bd = self.blest, self.ops, b.bd
         state = blest.init_state(bd, int(b.perm[src]))
         for _ in range(depth):
@@ -476,6 +528,12 @@ class Smoke:
             return blest._level_dense(bd, state, lazy=b.stats.lazy,
                                       packed=True)
 
+        sweep = (state.v, v_next, state.level, state.ell)
+        self.same("frontier_sweep", ops.frontier_sweep(*sweep,
+                                                       sigma=bd.sigma),
+                  self.kernels["frontier_sweep"]["plain"](
+                      *sweep, sigma=bd.sigma),
+                  f"{label} dense level at depth {depth}")
         stages = {
             "alphas_gather": lambda: state.f_words.index_select(0, bd.v2r),
             "pull_ss_packed": lambda: ops.pull_ss_packed(bd.masks_packed,
@@ -576,18 +634,19 @@ class Smoke:
                           k["plain"](dest, r, m_), w)
             block = (8, 16)[case % 2]
             tiles = mma.prep_mma_tiles(bd, block=block)
-            k = self.kernels["pull_mma_ms_packed"]
-            out = k["fn"](tiles.a_planes, fp, tiles.v2r, sigma=sigma,
-                          block=block)
-            self.same("pull_mma_ms_packed", out,
-                      k["plain"](tiles.a_planes, fp, tiles.v2r), what)
-            self.same("pull_mma_ms_packed", out[: bd.num_vss_pad], marks,
-                      f"{what} against the gather pull")
             a = self.t(rng.integers(-128, 128, tuple(tiles.a_planes.shape))
                        .astype(np.int8))
-            self.same("pull_mma_ms_packed",
-                      k["fn"](a, fp, tiles.v2r, sigma=sigma, block=block),
-                      k["plain"](a, fp, tiles.v2r), f"{what}, int8 planes")
+            for name in ("pull_mma_ms_packed", "pull_mma_ms_packed_bmma"):
+                k = self.kernels[name]
+                out = k["fn"](tiles.a_planes, fp, tiles.v2r, sigma=sigma,
+                              block=block)
+                self.same(name, out,
+                          k["plain"](tiles.a_planes, fp, tiles.v2r), what)
+                self.same(name, out[: bd.num_vss_pad], marks,
+                          f"{what} against the gather pull")
+                self.same(name,
+                          k["fn"](a, fp, tiles.v2r, sigma=sigma, block=block),
+                          k["plain"](a, fp, tiles.v2r), f"{what}, int8 planes")
         try:
             mma.pull_mma_ms_packed(a[1:], fp, tiles.v2r[1:], sigma=sigma)
         except ValueError as e:
@@ -886,11 +945,7 @@ class Smoke:
             "pull_ms": self.pull_ms_cell(bd, st.f_planes),
             "pull_ms_packed": self.packed_pull_cell(bd, fp),
             "scatter_or": self.scatter_cell(v2, rows, marks.reshape(-1, kw)),
-            "pull_mma_ms_packed": ((tiles.a_planes, fp, tiles.v2r),
-                                   n_q * tau * sigma + 4 * s1 * sigma * kw
-                                   + 4 * n_q + 4 * n_q * tau * kw,
-                                   2 * n_q * tau * sigma * kw * 32,
-                                   INT8_MMA_OPS_PER_S),
+            "pull_mma_ms_packed": self.mma_pull_cell(tiles, fp),
         }
         rows_out = []
         for name, (args, nbytes, nops, peak) in cells.items():
@@ -898,7 +953,10 @@ class Smoke:
             n = args[0].shape[0] if name != "scatter_or" else n_v
             what = f"production shapes (N_v={n_v}, tau={tau}, " \
                    f"kappa={kappa if name == 'pull_ms' else 32 * kw})"
-            row = self.kernel_row(name, args, nbytes, nops, peak, n, what)
+            row = self.kernel_row(name, args, nbytes, nops, peak, n, what,
+                                  graph=name == "pull_mma_ms_packed")
+            if name == "pull_mma_ms_packed":
+                row["other_form"] = self.bmma_row(args, nbytes, nops, n, what)
             lib_ms = None
             if name in ("pull_ms", "pull_mma_ms_packed"):
                 lib_ms = self.bmm_ms(args[0] if name == "pull_mma_ms_packed"
@@ -922,6 +980,33 @@ class Smoke:
         return ((bd.masks, f_planes, bd.v2r),
                 n_v * tau + s1 * sigma * kappa + 4 * n_v + n_v * tau * kappa,
                 2 * n_v * tau * sigma * kappa, INT8_MMA_OPS_PER_S)
+
+    def mma_pull_cell(self, tiles, fp):
+        """pull_mma_ms_packed's (args, bytes, operations, rate) on the
+        frontier tiles ``fp``: the int8 plane rows, tiles and v2r read,
+        marks written; the product's operations at the int8 MMA rate."""
+        n_q, tau, sigma = tiles.a_planes.shape
+        s1, _, kw = fp.shape
+        return ((tiles.a_planes, fp, tiles.v2r),
+                n_q * tau * sigma + 4 * s1 * sigma * kw + 4 * n_q
+                + 4 * n_q * tau * kw,
+                2 * n_q * tau * sigma * kw * 32, INT8_MMA_OPS_PER_S)
+
+    def bmma_row(self, args, nbytes, nops, n, what):
+        """Kernel 7's tensor-core form on kernel 7's arguments: equality
+        with the plain version, event and graph times, its bound (kernel
+        7's), its mma.sync count and the rate it reached."""
+        a_planes, fp = args[0], args[1]
+        n_q, tau, sigma = a_planes.shape
+        row = self.kernel_row("pull_mma_ms_packed_bmma", args, nbytes, nops,
+                              INT8_MMA_OPS_PER_S, n, what, graph=True)
+        mmas = bmma_count(n_q, tau, sigma, fp.shape[2])
+        row.update(name="pull_mma_ms_packed_bmma", route="cuda",
+                   source=self.kernels["pull_mma_ms_packed_bmma"]["source"],
+                   max_abs_err=self.kernels["pull_mma_ms_packed_bmma"][
+                       "max_abs_err"],
+                   mma=mmas, mma_per_s=mmas / (row["graph_ms"] * 1e-3))
+        return row
 
     def packed_pull_cell(self, bd, fp):
         """pull_ms_packed's (args, bytes, operations, rate) on the frontier
@@ -984,16 +1069,21 @@ class Smoke:
             "scatter_or": self.scatter_cell(v1, bd.rows32,
                                             marks.reshape(-1, fp.shape[2])),
             "pull_ms_packed": self.packed_pull_cell(bd, fp),
+            "pull_mma_ms_packed": self.mma_pull_cell(runner._mma_tiles, fp),
             **self.serve_cells(bd, v1, fp, fp, self.active_qids(bd, fp),
                                runner._mma_tiles)}
         del marks
         for name, cell in cells.items():
             what = (f"road shapes (N_v={n_v}, tau={tau}, kappa="
                     f"{len(srcs)}, level {st.ell - 1})")
+            n = cell[0][0].shape[0] if name == "pull_mma_ms_packed" else n_v
             self.road_kernels[name] = dict(
-                self.kernel_row(name, *cell, n_v, what,
+                self.kernel_row(name, *cell, n, what,
                                 graph=name not in ("pull_ms", "scatter_or")),
                 level=st.ell - 1)
+            if name == "pull_mma_ms_packed":
+                self.road_kernels[name]["other_form"] = self.bmma_row(
+                    cell[0], cell[1], cell[2], n, what)
 
     def bmm_ms(self, a_planes, bd, f, v2r, name):
         """Yardstick: torch.bmm of the fp16 0/1 operands, (tau, sigma) mask

@@ -46,6 +46,8 @@ SIGNATURES = {
             [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P], _INT),
         "blest_pull_mma_ms_packed": (
             [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P], _INT),
+        "blest_pull_mma_ms_packed_bmma": (
+            [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P], _INT),
         "blest_scatter_or": ([_P, _P, _P, _I64, _INT, _P], _INT),
         "blest_packed_vss_per_block": ([_I64, _INT, _INT, _INT], _INT),
         "blest_error_string": ([_INT], ctypes.c_char_p),

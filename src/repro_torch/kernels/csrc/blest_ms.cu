@@ -16,8 +16,10 @@
 // consecutive words, and reads each VSS's small parent frontier tile through
 // v2r itself, as the TPU kernels' index maps do.  The ragged edge is masked
 // by the loop bounds; nothing is padded.  sigma <= 8 (masks are bytes).
-// The packed gather pull is the dense instance of ms_pull.cuh's template
-// (blest_serve.cu has the queued one).
+// The packed gather pull and the MMA-operand pull are dense instances of
+// ms_pull.cuh's template, on mask bytes and on int8 plane rows
+// (blest_serve.cu has the queued one); the MMA-operand pull also has a
+// binary tensor-core form here (blest_pull_mma_ms_packed_bmma).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,7 +29,6 @@
 
 namespace {
 
-constexpr int kTileThreads = 128;  // pull_mma_ms_packed: a block per VSS
 // pull_ms's launch geometry, here alone: 8 warps a block; a block takes a
 // run of VSSs of kPullSlots slots (16 VSSs at tau = 128), fewer where their
 // frontier tiles would pass kPullSmem bytes (at least one VSS).
@@ -207,32 +208,201 @@ __global__ void __launch_bounds__(kPullThreads)
   }
 }
 
-// Replaces repro/kernels/pull_mma_ms_packed.py::pull_mma_ms_packed (Pallas:
-// per grid step a batched (block, tau, sigma) x (block, sigma, kappa) int8
-// product on the MXU over frontier tiles that XLA pre-gathered, then the
-// sign of the counts packed into words).  Here the kernel reads f through
-// v2r itself (no (n_q, sigma, kw) gathered copy), one block per VSS q, one
-// thread per output word (j, w):
-//   count[l] = sum_{b < sigma} a[q, j, b] * bit_l(f[v2r[q], b, w]),
-//   marks[q, j, w] = sum_l (count[l] > 0) << l
-// Bound: bytes (a_planes read, marks written); the 2*sigma*kappa operations
-// per slot at the int8 tensor-core rate take less time.  Scalar code
-// (blest::mma_word): the OR of the positively weighted words, or the 32-lane
-// count loop where a weight is negative; exact on any int8 a_planes, as the
-// reference is.
-__global__ void pull_mma_ms_packed_kernel(const int8_t* __restrict__ a_planes,
-                                          const uint32_t* __restrict__ f,
-                                          const int32_t* __restrict__ v2r,
-                                          uint32_t* __restrict__ marks,
-                                          int tau, int sigma, int kw) {
-  const int64_t q = blockIdx.x;
-  const uint32_t* fq = f + static_cast<int64_t>(v2r[q]) * sigma * kw;
-  const int8_t* aq = a_planes + q * tau * sigma;
-  const int words = tau * kw;
-  uint32_t* out = marks + q * words;
-  for (int i = threadIdx.x; i < words; i += blockDim.x) {
-    const int j = i / kw;
-    out[i] = blest::mma_word(aq + j * sigma, sigma, fq, kw, i % kw);
+// The binary tensor-core form of repro/kernels/pull_mma_ms_packed.py::
+// pull_mma_ms_packed (:177), reachable from its own entry point
+// (blest_pull_mma_ms_packed_bmma); the wrapper launches the template's
+// plane-row instance, which was faster on the H100 at every shape measured
+// (PERF.md).  One
+// mma.sync.m8n8k128 .b1 .and.popc per 8 slots x 8 lanes:
+//   marks[q, j, w] = pack_l( popc(A[q, j] & B[l]) > 0 )
+// Layout, with no wasted outputs: K (128 bits) packs a group of
+// G = 128 / sigma VSSs block-diagonally, VSS v of the group in bits
+// [v * sigma, v * sigma + sigma).  The A row of slot j of VSS v holds the
+// slot's positive-weight bits (blest::positive_bits of its plane row) in
+// v's segment and zeros elsewhere; the B column of lane l holds bit l of
+// the frontier words f[v2r[q], b, w] of every VSS of the group at bit
+// v * sigma + b.  So every product is a needed (slot, lane) count, exact
+// for weights without a negative one (count > 0 iff some positive weight's
+// plane has the bit); a slot with a negative weight counts its words with
+// the exact loop (blest::count_word), as the template does.
+// What bounds it: device-memory bytes, as the template (the plane rows and
+// the marks), unless the tensor cores and the packing of counts into words
+// are slower: 413M mma at kron-22, each 64 counts to threshold and pack.
+// On an H100 SXM it took 9.7 ms there against the template's 1.48, at
+// 4.2e10 mma a second, a fifth of the 2.3e11 the instruction reaches on
+// registers alone: the time goes around the mma, not into it.
+//
+// Design.  A block takes one group of G VSSs (16 at sigma = 8):
+//  1. the group's parents, then their tiles, into shared memory; each
+//     slot's plane row (one 8-byte load at sigma = 8) into a byte of its
+//     positive weights and a negative-weight flag;
+//  2. the bit transpose: K position p = v * sigma + b holds tile row
+//     (v, b); a warp takes one (K word, frontier word) pair at a time: lane
+//     i holds row 32 kk + i's word w, and 32 ballots give lane l the K word
+//     of lane column 32 w + l, kept in the B fragment's order so that a
+//     thread's four N tiles are one 16-byte shared load;
+//  3. a warp per M tile of 8 consecutive slots of the group (they may span
+//     VSSs: each row carries its own segment): its A fragment once, then
+//     four frontier words at a time (two or one where kw is no multiple of
+//     four), the B fragments of all, four mma a word (its 32 lanes, all
+//     issued before any count is read), each thread's two counts > 0 of an
+//     mma ORed into the word at its lanes, the word assembled across the
+//     four threads of a row with two shuffles; a row's words go out as
+//     16-byte stores where kw % 4 == 0 and marks is aligned, else one by
+//     one.
+// v2r must index f: it is read unchecked, as the TPU kernel reads it.
+// Geometry: 256 threads, ptxas -v: 58 registers (4 words a step) and 52
+// (2 or 1), no spill; at kron-22 50,399 blocks, 12 KB of dynamic shared
+// memory.  tools/ab_sweep_mma.py times it against the template's instance
+// and the instruction alone.
+constexpr int kBmmaThreads = 256;
+constexpr int kBmmaWarps = kBmmaThreads / 32;
+
+__device__ __forceinline__ void bmma_and_popc(uint32_t a, uint32_t b,
+                                              int& d0, int& d1) {
+  asm("mma.sync.aligned.m8n8k128.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1}, {%2}, {%3}, {%4, %5};"
+      : "=r"(d0), "=r"(d1)
+      : "r"(a), "r"(b), "r"(0), "r"(0));
+}
+
+// Shared memory of a group of G VSSs: the B columns (32 * kw lanes of 4
+// words), the tiles, the positive and flag bytes, the parents.
+inline int64_t bmma_smem(int group, int tau, int sigma, int kw) {
+  return 4 * (128 * int64_t{kw} + int64_t{group} * sigma * kw + group)
+         + (2 * int64_t{group} * tau + 15) / 16 * 16;
+}
+
+template <int kStep>  // frontier words a step: 4, 2 or 1, dividing kw
+__global__ void __launch_bounds__(kBmmaThreads)
+    pull_mma_bmma_kernel(const int8_t* __restrict__ a_planes,
+                         const uint32_t* __restrict__ f,
+                         const int32_t* __restrict__ v2r,
+                         uint32_t* __restrict__ marks, int64_t n_q, int tau,
+                         int sigma, int kw) {
+  extern __shared__ uint4 bmma_mem[];
+  const int group = 128 / sigma;
+  const int tile = sigma * kw;
+  uint32_t* cols = reinterpret_cast<uint32_t*>(bmma_mem);  // 128 * kw
+  uint32_t* tiles = cols + 128 * kw;                        // group * tile
+  int32_t* par = reinterpret_cast<int32_t*>(tiles + group * tile);
+  uint8_t* pos = reinterpret_cast<uint8_t*>(par + group);   // group * tau
+  uint8_t* neg = pos + group * tau;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * group;
+  const int nv = n_q - q0 < group ? static_cast<int>(n_q - q0) : group;
+  const int slots = nv * tau;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // 1. parents, tiles (zero past nv), positive weights and flags
+  for (int v = threadIdx.x; v < nv; v += kBmmaThreads) par[v] = v2r[q0 + v];
+  __syncthreads();
+  for (int i = threadIdx.x; i < group * tile; i += kBmmaThreads) {
+    const int v = i / tile;
+    tiles[i] = v < nv ? __ldg(f + static_cast<int64_t>(par[v]) * tile
+                              + (i - v * tile))
+                      : 0u;
+  }
+  const int8_t* aq = a_planes + q0 * tau * sigma;
+  for (int s = threadIdx.x; s < slots; s += kBmmaThreads) {
+    const uint64_t row = blest::plane_row(aq + static_cast<int64_t>(s) * sigma,
+                                          sigma);
+    pos[s] = blest::positive_bits(row);
+    neg[s] = blest::has_negative(row);
+  }
+  __syncthreads();
+
+  // 2. the bit transpose into B columns: cols[((w * 8 + g) * 4 + kk) * 4
+  //    + nt] is K word kk of lane 8 nt + g of frontier word w
+  const int kp = group * sigma;  // K positions in use (128 where sigma | 128)
+  for (int task = warp; task < 4 * kw; task += kBmmaWarps) {
+    const int kk = task & 3, w = task >> 2;
+    const int p = 32 * kk + lane;
+    const uint32_t r = p < kp ? tiles[p * kw + w] : 0u;
+    uint32_t mine = 0;
+    for (int l = 0; l < 32; ++l) {
+      const uint32_t col = __ballot_sync(0xffffffffu, (r >> l) & 1u);
+      if (lane == l) mine = col;
+    }
+    cols[((w * 8 + (lane & 7)) * 4 + kk) * 4 + (lane >> 3)] = mine;
+  }
+  __syncthreads();
+
+  // 3. a warp per M tile of 8 slots, kStep frontier words at a time: their
+  //    B fragments, then their 4 kStep mma, then the counts into words
+  const int g = lane >> 2, t = lane & 3;
+  const int mtiles = (slots + 7) / 8;
+  uint32_t* out = marks + q0 * tau * kw;
+  const bool vec =
+      kStep == 4 && (reinterpret_cast<uintptr_t>(marks) & 15u) == 0;
+  for (int m = warp; m < mtiles; m += kBmmaWarps) {
+    const int s = 8 * m + g;  // this thread's row
+    uint32_t a = 0;
+    if (s < slots) {
+      const int seg = (s / tau) * sigma - 32 * t;  // v's segment, from word t
+      const uint32_t ps = pos[s];
+      a = seg >= 0 ? (seg < 32 ? ps << seg : 0u)
+                   : (-seg < sigma ? ps >> -seg : 0u);
+    }
+    for (int w0 = 0; w0 < kw; w0 += kStep) {
+      __syncwarp();  // converged for mma.sync.aligned and the shuffles
+      uint4 b[kStep];
+#pragma unroll
+      for (int e = 0; e < kStep; ++e) {
+        b[e] = *reinterpret_cast<const uint4*>(
+            cols + (((w0 + e) * 8 + g) * 4 + t) * 4);
+      }
+      int d[kStep][8];  // N tile nt: columns 2 t and 2 t + 1 in 2 nt, + 1
+#pragma unroll
+      for (int e = 0; e < kStep; ++e) {
+        bmma_and_popc(a, b[e].x, d[e][0], d[e][1]);
+        bmma_and_popc(a, b[e].y, d[e][2], d[e][3]);
+        bmma_and_popc(a, b[e].z, d[e][4], d[e][5]);
+        bmma_and_popc(a, b[e].w, d[e][6], d[e][7]);
+      }
+      uint32_t r[kStep];
+#pragma unroll
+      for (int e = 0; e < kStep; ++e) {
+        uint32_t bits = 0;  // lanes 8 nt + 2 t and + 1 of the word
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          bits |= d[e][c] > 0 ? 1u << (8 * (c / 2) + c % 2) : 0u;
+        }
+        r[e] = bits << (2 * t);
+      }
+#pragma unroll
+      for (int e = 0; e < kStep; ++e) {
+        r[e] |= __shfl_xor_sync(0xffffffffu, r[e], 1);
+      }
+#pragma unroll
+      for (int e = 0; e < kStep; ++e) {
+        r[e] |= __shfl_xor_sync(0xffffffffu, r[e], 2);
+      }
+      // r: row s's words w0 .. w0 + kStep - 1, in each of the row's four
+      // threads; thread 0 of the row stores four as one 16-byte store, or
+      // thread t word w0 + t
+      if (s < slots && (vec ? t == 0 : t < kStep)) {
+        const bool exact = neg[s] != 0;
+        const int8_t* aj = aq + static_cast<int64_t>(s) * sigma;
+        const uint32_t* tv = tiles + (s / tau) * tile;
+        uint32_t* dst = out + static_cast<int64_t>(s) * kw + w0;
+        if (vec) {
+          if (exact) {
+#pragma unroll
+            for (int e = 0; e < kStep; ++e) {
+              r[e] = blest::exact_word(aj, sigma, tv, kw, w0 + e);
+            }
+          }
+          *reinterpret_cast<uint4*>(dst) =
+              make_uint4(r[0], r[kStep > 1], r[kStep > 2 ? 2 : 0],
+                         r[kStep > 3 ? 3 : 0]);
+        } else {
+          uint32_t x = r[0];
+#pragma unroll
+          for (int e = 1; e < kStep; ++e) x = t == e ? r[e] : x;
+          dst[t] = exact ? blest::exact_word(aj, sigma, tv, kw, w0 + t) : x;
+        }
+      }
+    }
   }
 }
 
@@ -392,14 +562,42 @@ int blest_packed_vss_per_block(int64_t n_q, int tau, int sigma, int kw) {
   return blest::packed_vss_per_block(n_q, tau, sigma, kw);
 }
 
+// The MMA-operand pull (kernel 7): the template's plane-row instance.
 int blest_pull_mma_ms_packed(const void* a_planes, const void* f,
                              const void* v2r, void* marks, int64_t n_q,
                              int tau, int sigma, int kw, void* stream) {
-  pull_mma_ms_packed_kernel<<<static_cast<unsigned>(n_q), kTileThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  return blest::launch_pull_ms_packed<false, true>(
+      a_planes, f, v2r, nullptr, marks, n_q, tau, sigma, kw, stream);
+}
+
+// Kernel 7's binary tensor-core form, a block per group of 128 / sigma VSSs.
+int blest_pull_mma_ms_packed_bmma(const void* a_planes, const void* f,
+                                  const void* v2r, void* marks, int64_t n_q,
+                                  int tau, int sigma, int kw, void* stream) {
+  if (n_q < 1 || tau < 1 || sigma < 1 || sigma > 8 || kw < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int group = 128 / sigma;
+  const int64_t blocks = (n_q + group - 1) / group;
+  const int64_t smem = bmma_smem(group, tau, sigma, kw);
+  if (blocks > INT32_MAX || smem > 227 * 1024
+      || int64_t{group} * tau * kw > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = kw % 4 == 0   ? pull_mma_bmma_kernel<4>
+                : kw % 2 == 0 ? pull_mma_bmma_kernel<2>
+                              : pull_mma_bmma_kernel<1>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(blocks), kBmmaThreads,
+           static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a_planes), static_cast<const uint32_t*>(f),
-      static_cast<const int32_t*>(v2r), static_cast<uint32_t*>(marks), tau,
-      sigma, kw);
+      static_cast<const int32_t*>(v2r), static_cast<uint32_t*>(marks), n_q,
+      tau, sigma, kw);
   return static_cast<int>(cudaGetLastError());
 }
 

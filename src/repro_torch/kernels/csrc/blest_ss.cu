@@ -9,12 +9,13 @@
 //
 // What bounds them: all three are integer passes that do a few ALU
 // operations per byte they move, so device-memory bandwidth bounds them
-// (bytes moved / 3.35 TB/s on an H100 SXM).  The design meets that bound
-// the simple way: consecutive threads touch consecutive bytes or words, so
-// every warp's loads and stores coalesce, each input is read once and each
+// (bytes moved / 3.35 TB/s on an H100 SXM).  The pulls meet it the simple
+// way: consecutive threads touch consecutive bytes or words, so every
+// warp's loads and stores coalesce, each input is read once and each
 // output written once, and a grid-stride loop over a grid of a few blocks
-// per SM keeps enough loads in flight.  The ragged edge is masked by the
-// loop bound; nothing is padded.
+// per SM keeps enough loads in flight.  The sweep takes 16-byte items (its
+// note below).  The ragged edge is masked by the loop bound; nothing is
+// padded.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,27 +63,53 @@ __global__ void pull_ss_packed_kernel(const uint32_t* __restrict__ masks,
   }
 }
 
-// Replaces repro/kernels/frontier_sweep.py::frontier_sweep.  One thread per
-// slice set s, owning vertices [s*sigma, (s+1)*sigma): no two threads write
-// the same vertex, so no atomics.  ell is a kernel argument (the TPU kernel
-// brings it in by scalar prefetch).
-__global__ void frontier_sweep_kernel(const uint8_t* __restrict__ v_curr,
-                                      const uint8_t* __restrict__ v_next,
-                                      const int32_t* __restrict__ level,
-                                      uint8_t* __restrict__ v_out,
-                                      int32_t* __restrict__ level_out,
-                                      uint8_t* __restrict__ f_words,
-                                      uint8_t* __restrict__ active,
-                                      int64_t num_sets, int sigma,
-                                      int32_t ell) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       s < num_sets; s += stride) {
+// Replaces repro/kernels/frontier_sweep.py::frontier_sweep (Pallas: a
+// (BLK_N,) tile of each input per grid step, ell by scalar prefetch).  Per
+// slice set s of sigma vertices u = s * sigma + b:
+//   diff[u]     = v_next[u] & (1 - v_curr[u])     (uint8 arithmetic)
+//   level'[u]   = diff[u] ? ell : level[u]
+//   f_words[s]  = uint8(sum_b diff[u] << b),  active[s] = (that sum) != 0
+//   v_out[u]    = v_next[u]
+// exact on any byte values, as the reference is (the sum is int32, all
+// terms >= 0).  ell is a kernel argument.
+//
+// What bounds it: device-memory bytes, 11 + 2 / sigma a vertex (v_curr,
+// v_next, v_out, 4-byte level in and out, a frontier and an activity byte
+// a set): 47.2 MB at kron-22, 11.8 MB at road-20.  The first port ran a
+// thread per slice set with sigma single-byte loads and stores, strided by
+// sigma across the warp, and the int32 level in 4-byte pieces 32 bytes
+// apart: a quarter of the bandwidth.
+//
+// Design.  A thread owns an item of kSweepItem = 16 consecutive vertices,
+// 16 / sigma whole slice sets (sigma divides 16), so no two threads write
+// one vertex and there are no atomics.  It makes one 16-byte load each of
+// v_curr and v_next and four of level, the same per-vertex arithmetic in
+// registers, byte by byte (sigma a template argument, so every index is a
+// constant), then one 16-byte store of v_out, four of level', and one store
+// of 16 / sigma bytes each of f_words and active (2 bytes at sigma = 8).
+// A thread an item, no grid-stride loop: road-20's 1,048,584 vertices are
+// 65,536 items and the tail's set in 513 blocks of 128 threads, 3.9 on
+// each of the H100's 132 SMs, all resident at once, six 16-byte loads in
+// flight a thread.  The tail (n % 16 vertices, whole sets, since sigma
+// divides n) goes to the thread after the last item, vertex by vertex; a
+// call where any pointer is off the alignment its vector accesses need (a
+// view with a storage offset) runs the per-vertex kernel over every set
+// instead.  Nothing is padded.
+constexpr int kSweepThreads = 128;
+constexpr int kSweepItem = 16;  // vertices an item
+
+// Slice sets [s0, s1), vertex by vertex (the tail and the unaligned path).
+__device__ __forceinline__ void sweep_sets(
+    const uint8_t* __restrict__ v_curr, const uint8_t* __restrict__ v_next,
+    const int32_t* __restrict__ level, uint8_t* __restrict__ v_out,
+    int32_t* __restrict__ level_out, uint8_t* __restrict__ f_words,
+    uint8_t* __restrict__ active, int64_t s0, int64_t s1, int sigma,
+    int32_t ell) {
+  for (int64_t s = s0; s < s1; ++s) {
     int32_t word = 0;
     for (int b = 0; b < sigma; ++b) {
       const int64_t u = s * sigma + b;
       const uint8_t nxt = v_next[u];
-      // uint8 arithmetic as in the reference: diff = v_next & (1 - v_curr)
       const uint8_t diff = nxt & static_cast<uint8_t>(1 - v_curr[u]);
       v_out[u] = nxt;
       level_out[u] = diff ? ell : level[u];
@@ -91,6 +118,97 @@ __global__ void frontier_sweep_kernel(const uint8_t* __restrict__ v_curr,
     f_words[s] = static_cast<uint8_t>(word);
     active[s] = word != 0;
   }
+}
+
+// The per-vertex kernel: a thread per slice set, on a grid-stride loop.
+__global__ void frontier_sweep_sets(const uint8_t* __restrict__ v_curr,
+                                    const uint8_t* __restrict__ v_next,
+                                    const int32_t* __restrict__ level,
+                                    uint8_t* __restrict__ v_out,
+                                    int32_t* __restrict__ level_out,
+                                    uint8_t* __restrict__ f_words,
+                                    uint8_t* __restrict__ active,
+                                    int64_t num_sets, int sigma, int32_t ell) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       s < num_sets; s += stride) {
+    sweep_sets(v_curr, v_next, level, v_out, level_out, f_words, active, s,
+               s + 1, sigma, ell);
+  }
+}
+
+// kSets bytes at p (kSets-byte aligned) as one store.
+template <int kSets>
+__device__ __forceinline__ void store_set_bytes(uint8_t* p,
+                                                const uint32_t (&x)[kSets]) {
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int k = 0; k < kSets; ++k) w[k / 4] |= (x[k] & 0xffu) << (8 * (k % 4));
+  if (kSets == 16) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if (kSets == 8) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else if (kSets == 4) {
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+  } else {
+    *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(w[0]);
+  }
+}
+
+template <int kSigma>
+__global__ void __launch_bounds__(kSweepThreads)
+    frontier_sweep_items(const uint8_t* __restrict__ v_curr,
+                         const uint8_t* __restrict__ v_next,
+                         const int32_t* __restrict__ level,
+                         uint8_t* __restrict__ v_out,
+                         int32_t* __restrict__ level_out,
+                         uint8_t* __restrict__ f_words,
+                         uint8_t* __restrict__ active, int64_t items,
+                         int64_t num_sets, int32_t ell) {
+  constexpr int kSets = kSweepItem / kSigma;  // slice sets an item
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kSweepThreads
+                    + threadIdx.x;
+  if (i >= items) {
+    if (i == items) {  // the tail, whole sets
+      sweep_sets(v_curr, v_next, level, v_out, level_out, f_words, active,
+                 items * kSets, num_sets, kSigma, ell);
+    }
+    return;
+  }
+  const uint4 c4 = __ldg(reinterpret_cast<const uint4*>(v_curr) + i);
+  const uint4 n4 = __ldg(reinterpret_cast<const uint4*>(v_next) + i);
+  const int4* lp = reinterpret_cast<const int4*>(level) + 4 * i;
+  int4 l4[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) l4[k] = __ldg(lp + k);
+  const uint32_t cur[4] = {c4.x, c4.y, c4.z, c4.w};
+  const uint32_t nxt[4] = {n4.x, n4.y, n4.z, n4.w};
+  int32_t lv[16] = {l4[0].x, l4[0].y, l4[0].z, l4[0].w,
+                    l4[1].x, l4[1].y, l4[1].z, l4[1].w,
+                    l4[2].x, l4[2].y, l4[2].z, l4[2].w,
+                    l4[3].x, l4[3].y, l4[3].z, l4[3].w};
+  uint32_t word[kSets];
+#pragma unroll
+  for (int k = 0; k < kSets; ++k) word[k] = 0;
+#pragma unroll
+  for (int u = 0; u < kSweepItem; ++u) {
+    const uint32_t c = (cur[u / 4] >> (8 * (u % 4))) & 0xffu;
+    const uint32_t x = (nxt[u / 4] >> (8 * (u % 4))) & 0xffu;
+    const uint32_t diff = x & ((1u - c) & 0xffu);  // uint8 arithmetic
+    lv[u] = diff ? ell : lv[u];
+    word[u / kSigma] += diff << (u % kSigma);
+  }
+  reinterpret_cast<uint4*>(v_out)[i] = n4;
+  int4* lo = reinterpret_cast<int4*>(level_out) + 4 * i;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    lo[k] = make_int4(lv[4 * k], lv[4 * k + 1], lv[4 * k + 2], lv[4 * k + 3]);
+  }
+  uint32_t act[kSets];
+#pragma unroll
+  for (int k = 0; k < kSets; ++k) act[k] = word[k] != 0;
+  store_set_bytes<kSets>(f_words + i * kSets, word);
+  store_set_bytes<kSets>(active + i * kSets, act);
 }
 
 }  // namespace
@@ -121,12 +239,38 @@ int blest_frontier_sweep(const void* v_curr, const void* v_next,
                          const void* level, void* v_out, void* level_out,
                          void* f_words, void* active, int64_t num_sets,
                          int sigma, int ell, void* stream) {
-  frontier_sweep_kernel<<<grid_for(num_sets), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(v_curr), static_cast<const uint8_t*>(v_next),
-      static_cast<const int32_t*>(level), static_cast<uint8_t*>(v_out),
-      static_cast<int32_t*>(level_out), static_cast<uint8_t*>(f_words),
-      static_cast<uint8_t*>(active), num_sets, sigma, ell);
+  if (num_sets < 1 || (sigma != 1 && sigma != 2 && sigma != 4 && sigma != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto misaligned = [](const void* p, uintptr_t bytes) {
+    return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) != 0;
+  };
+  const uintptr_t set_bytes = kSweepItem / sigma;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* vc = static_cast<const uint8_t*>(v_curr);
+  const auto* vn = static_cast<const uint8_t*>(v_next);
+  const auto* lv = static_cast<const int32_t*>(level);
+  auto* vo = static_cast<uint8_t*>(v_out);
+  auto* lo = static_cast<int32_t*>(level_out);
+  auto* fw = static_cast<uint8_t*>(f_words);
+  auto* ac = static_cast<uint8_t*>(active);
+  if (misaligned(vc, 16) || misaligned(vn, 16) || misaligned(lv, 16)
+      || misaligned(vo, 16) || misaligned(lo, 16)
+      || misaligned(fw, set_bytes) || misaligned(ac, set_bytes)) {
+    frontier_sweep_sets<<<grid_for(num_sets), kThreads, 0, st>>>(
+        vc, vn, lv, vo, lo, fw, ac, num_sets, sigma, ell);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int64_t items = num_sets * sigma / kSweepItem;
+  const bool tail = items * kSweepItem < num_sets * sigma;
+  const int64_t blocks = (items + tail + kSweepThreads - 1) / kSweepThreads;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = sigma == 1   ? frontier_sweep_items<1>
+                : sigma == 2 ? frontier_sweep_items<2>
+                : sigma == 4 ? frontier_sweep_items<4>
+                             : frontier_sweep_items<8>;
+  kernel<<<static_cast<unsigned>(blocks), kSweepThreads, 0, st>>>(
+      vc, vn, lv, vo, lo, fw, ac, items, num_sets, ell);
   return static_cast<int>(cudaGetLastError());
 }
 

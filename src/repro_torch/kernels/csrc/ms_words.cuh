@@ -1,8 +1,9 @@
-// One packed output word of the binary-MMA pulls, shared by the kernels of
-// blest_ms.cu (kernel 7) and blest_serve.cu (kernel 10).  A word holds 32
-// lanes (BFSs) of one slot (slice) of a VSS; fq points at the parent slice
-// set's (sigma, kw) frontier words (row stride kw), w is the word's index in
-// [0, kw).  sigma <= 8.  The selective-OR pull is ms_pull.cuh's.
+// The int8 plane rows of the binary-MMA pulls, shared by ms_pull.cuh's
+// plane-row instance and blest_ms.cu's tensor-core form (kernel 7) and by
+// blest_serve.cu (kernel 10): a slot's weights as one 64-bit row, its
+// positive-weight bits and negative flag, and the exact word of a row with
+// a negative weight.  A word holds 32 lanes (BFSs) of one slot (slice) of a
+// VSS.  sigma <= 8.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,29 +58,6 @@ __device__ __forceinline__ uint32_t count_word(uint64_t row,
     word |= static_cast<uint32_t>(count > 0) << l;
   }
   return word;
-}
-
-// The binary-MMA pull of kernels/pull_mma_ms_packed.py, for one slot with
-// int8 weights aj[0..sigma):
-//   count[l] = sum_b aj[b] * bit_l(fq[b, w]);   word = sum_l (count[l] > 0) << l
-// When no weight is negative, count[l] > 0 exactly when some b with
-// aj[b] > 0 has bit l set, so the word is the OR of those words (one pass);
-// a negative weight runs the 32-lane count loop.  Both are exact on any int8
-// weights.  Zero weights read no frontier word.  The unrolled loop keeps a
-// and fw in registers (weights past sigma are 0).
-__device__ __forceinline__ uint32_t mma_word(const int8_t* aj, int sigma,
-                                             const uint32_t* fq, int kw,
-                                             int w) {
-  const uint64_t row = plane_row(aj, sigma);
-  uint32_t fw[8];
-  uint32_t pos_or = 0;
-#pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    const int a = weight(row, b);
-    fw[b] = a ? fq[b * kw + w] : 0u;
-    if (a > 0) pos_or |= fw[b];
-  }
-  return has_negative(row) ? count_word(row, fw) : pos_or;
 }
 
 }  // namespace blest

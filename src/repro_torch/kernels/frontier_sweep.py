@@ -7,9 +7,12 @@ One pass over the visited bytes computes, per slice set of sigma vertices:
   f_words[s] = sigma-bit frontier word   (packing diff into F_curr^sigma)
   active[s]  = f_words[s] != 0           (next-level slice-set activity)
 
-One GPU thread owns one slice set, so threads write disjoint vertices and no
-atomics are needed.  CUDA tensors only; :mod:`repro_torch.kernels.ops` sends
-CPU tensors to :func:`repro_torch.kernels.ref.frontier_sweep_ref`.
+One GPU thread owns an item of 16 consecutive vertices (16 / sigma whole
+slice sets) with 16-byte loads and stores, so threads write disjoint
+vertices and no atomics are needed; the tail and an input whose pointer is
+off 16-byte alignment go vertex by vertex (``csrc/blest_ss.cu``'s note).
+CUDA tensors only; :mod:`repro_torch.kernels.ops` sends CPU tensors to
+:func:`repro_torch.kernels.ref.frontier_sweep_ref`.
 """
 from __future__ import annotations
 

@@ -25,10 +25,18 @@ does; ``repro``'s ``pull_scatter_mma_ms_packed_ref`` instead sums the counts
 of duplicate rows before it thresholds, which differs only where a plane
 has a negative weight (never on ``prep_mma_tiles``'s 0/1 planes).
 
+:func:`pull_mma_ms_packed` launches the plane-row instance of
+``csrc/ms_pull.cuh``'s template: the selective OR over each slot's positive
+weights, the exact count where a slot has a negative weight.
+:func:`pull_mma_ms_packed_bmma` is the same function on the tensor cores
+(``mma.sync`` m8n8k128 ``.b1`` ``.and.popc``, ``csrc/blest_ms.cu``), kept
+beside it and measured against it; no path of the port calls it.
+
 Words are ``torch.int32`` bit patterns.  The wrappers take CUDA tensors only
 and count their launches in ``<wrapper>.launches``;
 :mod:`repro_torch.kernels.ops` sends CPU tensors to the plain versions
-:func:`pull_mma_ms_packed_ref` and :func:`pull_scatter_mma_ms_packed_ref`.
+:func:`pull_mma_ms_packed_ref` and :func:`pull_scatter_mma_ms_packed_ref`
+(the tensor-core form does so itself).
 """
 from __future__ import annotations
 
@@ -124,6 +132,23 @@ def check_block(n_q: int, block: int) -> None:
             f"kernel does not truncate ragged last tiles")
 
 
+def _mma_pull(fn: str, counter, a_planes, f_packed, v2r, sigma, block):
+    check_block(a_planes.shape[0], block)
+    _check(a_planes, torch.int8, 3, "a_planes")
+    n_q, tau, sig = a_planes.shape
+    if sig != sigma:
+        raise ValueError(f"a_planes has sigma={sig}, expected {sigma}")
+    check_parents(n_q, f_packed, torch.int32, v2r, sigma, a_planes)
+    kw = f_packed.shape[2]
+    marks = torch.empty((n_q, tau, kw), dtype=torch.int32,
+                        device=a_planes.device)
+    if marks.numel():
+        _build.launch("blest_ms", fn, a_planes.device, a_planes.data_ptr(),
+                      f_packed.data_ptr(), v2r.data_ptr(), marks.data_ptr(),
+                      n_q, tau, sigma, kw, counter=counter)
+    return marks
+
+
 def pull_mma_ms_packed(a_planes: torch.Tensor, f_packed: torch.Tensor,
                        v2r: torch.Tensor, *, sigma: int = 8,
                        block: int = MMA_VSS_BLOCK) -> torch.Tensor:
@@ -135,25 +160,27 @@ def pull_mma_ms_packed(a_planes: torch.Tensor, f_packed: torch.Tensor,
     f_packed: (num_sets_ext, sigma, kw) int32 frontier words
     v2r:      (n_q_pad,) int32 — sentinel-padded parent sets
     """
-    check_block(a_planes.shape[0], block)
-    _check(a_planes, torch.int8, 3, "a_planes")
-    n_q, tau, sig = a_planes.shape
-    if sig != sigma:
-        raise ValueError(f"a_planes has sigma={sig}, expected {sigma}")
-    check_parents(n_q, f_packed, torch.int32, v2r, sigma, a_planes)
-    kw = f_packed.shape[2]
-    marks = torch.empty((n_q, tau, kw), dtype=torch.int32,
-                        device=a_planes.device)
-    if marks.numel():
-        _build.launch("blest_ms", "blest_pull_mma_ms_packed",
-                      a_planes.device, a_planes.data_ptr(),
-                      f_packed.data_ptr(), v2r.data_ptr(), marks.data_ptr(),
-                      n_q, tau, sigma, kw,
-                      counter=pull_mma_ms_packed)
-    return marks
+    return _mma_pull("blest_pull_mma_ms_packed", pull_mma_ms_packed,
+                     a_planes, f_packed, v2r, sigma, block)
 
 
 pull_mma_ms_packed.launches = 0
+
+
+def pull_mma_ms_packed_bmma(a_planes: torch.Tensor, f_packed: torch.Tensor,
+                            v2r: torch.Tensor, *, sigma: int = 8,
+                            block: int = MMA_VSS_BLOCK) -> torch.Tensor:
+    """:func:`pull_mma_ms_packed` on the tensor cores (binary ``mma.sync``
+    with ``.and.popc``), for CUDA tensors; CPU tensors go to
+    :func:`pull_mma_ms_packed_ref`.  Same arguments and result."""
+    if not a_planes.is_cuda:
+        check_block(a_planes.shape[0], block)
+        return pull_mma_ms_packed_ref(a_planes, f_packed.index_select(0, v2r))
+    return _mma_pull("blest_pull_mma_ms_packed_bmma", pull_mma_ms_packed_bmma,
+                     a_planes, f_packed, v2r, sigma, block)
+
+
+pull_mma_ms_packed_bmma.launches = 0
 
 
 def pull_mma_ms_packed_ref(a_planes: torch.Tensor,

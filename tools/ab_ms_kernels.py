@@ -70,8 +70,8 @@ FORMS = ("old", "new")
 TURNS = ("old", "new", "new", "old")
 ITEM_TURNS = ("new", "new_words", "new_words", "new")
 # new_words: the packed pulls' launcher never picks kQuad
-QUAD = ("auto kernel = kw % 4 == 0 ? pull_ms_packed_run<kQueued, kQuad>",
-        "auto kernel = false ? pull_ms_packed_run<kQueued, kQuad>")
+QUAD = ("auto kernel = kw % 4 == 0 ? run_kernel<kQueued, kQuad, kPlanes>()",
+        "auto kernel = false ? run_kernel<kQueued, kQuad, kPlanes>()")
 KERNEL_NAMES = ("pull_ms_kernel", "scatter_or_kernel", "pull_ms_packed")
 LIBS = ("blest_ms", "blest_serve")
 
