@@ -23,7 +23,10 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    ``pull_mma_ms_packed_bmma``), and a ragged VSS count that the MMA pull
    must refuse; ``frontier_sweep`` on 0/1 bytes and on any bytes, from
    aligned tensors and from views one element in (every input, or the
-   level alone); the packed pull also on mask bytes with bits above sigma,
+   level alone); ``pull_ss`` also on any bytes at tau in {16, 128} (its
+   item kernel's shift instances) and 48 (its division instance), a
+   ragged N_v, from fresh tensors and views one row in (the 16-byte item
+   kernel) and from views one element in (its byte kernel); the packed pull also on mask bytes with bits above sigma,
    all-zero masks; both packed pulls also where a block takes its full run
    of VSSs (tau in {1,2,4,128}, kw in {1,2,3,8}, a ragged last run; the
    queued one over ids repeated in no order).  The serve kernels over the
@@ -69,7 +72,9 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    which leaves the host's enqueue cost out), bounds.  Each graph's one
    dense single-source level also times ``pull_ss_packed`` and
    ``frontier_sweep`` that way, beside their byte bounds, and holds that
-   level's ``frontier_sweep`` against its plain version.
+   level's ``frontier_sweep`` against its plain version; on road,
+   ``pull_ss`` (which the road path, packed, does not launch) is held and
+   timed the same way on road's masks and that level's alphas.
 5. Every family of ``data/graphs.FAMILIES`` at scale 10 with automatic
    dispatch, all 8 combinations equal to the oracle; ``Blest.closeness``
    over all sources (fused and bucketed, both normalisations) against
@@ -100,7 +105,8 @@ of phases 3, 3b, 4 and 6 together, without the scale-10 families; ms per
 launch, the single-source kernels' and the MMA pull's graph ms, plain
 version's ms, the bound and what sets it, the library call's ms; for the
 multi-source kernels also ``road``, their ms, graph ms, plain ms and bound
-at road's shapes ROAD_LEVEL levels in; for the MMA pull ``other_form``, its
+at road's shapes ROAD_LEVEL levels in, and for ``pull_ss`` the same at
+road's dense single-source level; for the MMA pull ``other_form``, its
 tensor-core form's numbers, mma.sync count and rate, at both shapes), one
 JSON line
 ``{"bfs": [...]}`` (ms, edges/s and
@@ -384,11 +390,32 @@ class Smoke:
                     k = self.kernels["pull_ss_packed"]
                     self.same("pull_ss_packed", k["fn"](words, alphas),
                               k["plain"](words, alphas), what)
+            self.pull_ss_odd_case(rng, (16, 128, 48)[case % 3],
+                                  int(rng.integers(1, 3000)),
+                                  f"pool case {case}")
             sigma = (1, 2, 4, 8)[case % 4]
             self.sweep_case(rng, sigma * int(rng.integers(1, 40)), sigma,
                             f"pool case {case}")
             self.sweep_odd_case(rng, sigma * int(rng.integers(1, 40)), sigma,
                                 f"pool case {case}")
+
+    def pull_ss_odd_case(self, rng, tau, n_v, what):
+        """pull_ss on any mask and alpha bytes (all-zero alphas in some
+        cases) at a tau of 16-byte items: fresh tensors and a view one row
+        in (both 16-byte aligned: the item kernel), and a view one element
+        into a larger buffer (the byte kernel)."""
+        np = self.np
+        k = self.kernels["pull_ss"]
+        flat = self.t(rng.integers(0, 256, (n_v + 1) * tau, dtype=np.uint8))
+        alphas = self.t(np.zeros(n_v, np.uint8) if rng.random() < 0.15 else
+                        rng.integers(0, 256, n_v, dtype=np.uint8))
+        for masks, w in ((flat[:n_v * tau].view(n_v, tau).clone(), "fresh"),
+                         (flat.view(n_v + 1, tau)[1:], "a view one row in"),
+                         (flat[1:n_v * tau + 1].view(n_v, tau),
+                          "a view one element in")):
+            self.same("pull_ss", k["fn"](masks, alphas),
+                      k["plain"](masks, alphas),
+                      f"{what}, any bytes, {w} (N_v={n_v}, tau={tau})")
 
     def sweep_inputs(self, rng, n):
         np = self.np
@@ -509,7 +536,8 @@ class Smoke:
         graph's own lazy/eager mechanics) at the state ``depth`` levels from
         ``src``, and of the whole level back to back against one level of
         the fused loop with its per-level flag read (a host sync); the
-        level's frontier_sweep held against its plain version."""
+        level's frontier_sweep held against its plain version.  Returns the
+        level's alphas."""
         blest, ops, bd = self.blest, self.ops, b.bd
         state = blest.init_state(bd, int(b.perm[src]))
         for _ in range(depth):
@@ -562,6 +590,31 @@ class Smoke:
                                  + 2 * (bd.n_ext // bd.sigma)))}}
         self.bfs_rows.append(row)
         log(f"{label} one dense level at depth {depth}: {row['stage_ms']}")
+        return alphas
+
+    def road_pull_ss(self, bd, alphas, depth: int):
+        """pull_ss at road's shapes, where the road path (packed) does not
+        launch it: on road's byte masks and the alphas of its dense level
+        ``depth`` levels in, equality with its plain version, times (also
+        as a replayed CUDA graph's device time), the plain version's time
+        and the byte bound; kept for the ``{"kernels"}`` row."""
+        k = self.kernels["pull_ss"]
+        n_v, tau = bd.masks.shape
+        what = f"road shapes (N_v={n_v}, tau={tau}, level {depth})"
+        self.same("pull_ss", k["fn"](bd.masks, alphas),
+                  k["plain"](bd.masks, alphas), what)
+        nbytes, nops = 2 * n_v * tau + n_v, 2 * n_v * tau
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / ALU_OPS_PER_S * 1e3
+        row = {"ms": self.time_ms(lambda: k["fn"](bd.masks, alphas)),
+               "graph_ms": self.time_graph_ms(
+                   lambda: k["fn"](bd.masks, alphas)),
+               "plain_ms": self.time_ms(lambda: k["plain"](bd.masks, alphas)),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "level": depth}
+        log(f"pull_ss: {row} ({nbytes} bytes) at {what}")
+        self.road_kernels["pull_ss"] = row
 
     # ------------------------------------- phase 2b: multi-source pool --
     def rand_words(self, rng, shape, empty=0.15):
@@ -1662,7 +1715,8 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
     road_counts = ops.launch_counts()
     log(f"road path launches: {road_counts}")
     smoke.time_bfs(b, g, road_sources, road_label)
-    smoke.level_cost(b, 0, road_label, depth=3)
+    smoke.road_pull_ss(b.bd, smoke.level_cost(b, 0, road_label, depth=3),
+                       depth=3)
     smoke.road_ms_kernels(b, road_ms_srcs)
     road = (b, g, road_label, road_sources)
     del b, g

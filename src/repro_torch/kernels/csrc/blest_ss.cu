@@ -9,12 +9,12 @@
 //
 // What bounds them: all three are integer passes that do a few ALU
 // operations per byte they move, so device-memory bandwidth bounds them
-// (bytes moved / 3.35 TB/s on an H100 SXM).  The pulls meet it the simple
-// way: consecutive threads touch consecutive bytes or words, so every
-// warp's loads and stores coalesce, each input is read once and each
-// output written once, and a grid-stride loop over a grid of a few blocks
-// per SM keeps enough loads in flight.  The sweep takes 16-byte items (its
-// note below).  The ragged edge is masked by the loop bound; nothing is
+// (bytes moved / 3.35 TB/s on an H100 SXM).  Consecutive threads touch
+// consecutive bytes or words, so every warp's loads and stores coalesce,
+// and each input is read once and each output written once.  The byte
+// pull and the sweep take 16-byte items (their notes below); the packed
+// pull a 32-bit word a thread on a grid-stride loop over a grid of a few
+// blocks per SM.  The ragged edge is masked by the loop bound; nothing is
 // padded.
 
 #include <cuda_runtime.h>
@@ -33,17 +33,135 @@ int grid_for(int64_t n) {
 }
 
 // Replaces repro/kernels/pull_ss.py::pull_ss (Pallas, one (BLK_V, tau) byte
-// tile per grid step).  One thread per output byte:
+// tile per grid step):
 //   marks[v, l] = (masks[v, l] & alphas[v]) != 0
-__global__ void pull_ss_kernel(const uint8_t* __restrict__ masks,
-                               const uint8_t* __restrict__ alphas,
-                               uint8_t* __restrict__ marks,
-                               int64_t total, int64_t tau) {
+// exact on any byte values.
+//
+// What bounds it: device-memory bytes, 2 tau + 1 a VSS (masks in, marks
+// out, one alpha): 207.2 MB at kron-22 (N_v = 806,384, tau = 128).  The
+// first port ran a thread per byte (a byte load, a byte store and a 64-bit
+// division i / tau each) on a grid capped at 132 x 16 blocks: issue-bound
+// at 27% of the byte bound.
+//
+// Design.  Where tau % 16 == 0 and masks and marks are 16-byte aligned
+// (every call of the BFS drivers: tau = 128, fresh tensors), the item
+// kernel runs.  An item is 16 consecutive mask bytes of one row (tau % 16
+// == 0, so no item straddles two rows).  A thread takes kPullItems items
+// kPullThreads apart, so each warp access covers 512 contiguous bytes; it
+// issues every item's 16-byte read-only load and alpha byte first, then
+// makes each item's four words with the packed pull's carry trick against
+// the alpha broadcast to four bytes, then issues the 16-byte streaming
+// stores.  An item's row is i >> kShift (tau = 16 << kShift a template
+// argument for tau in {16, 32, 64, 128}) or one 32-bit division by tau / 16
+// otherwise; items are 32-bit, so the wrapper refuses masks of 2^31 items
+// (32 GiB) or more.  The grid is one wave of resident blocks over the
+// card's SMs (the occupancy API, once per instance), each looping over
+// chunks of kPullThreads * kPullItems items; a smaller input launches a
+// block a chunk.  Every other call (tau % 16 != 0, as the pool's tau in {1,
+// 2, 4}; a pointer off 16 bytes, as a view with a storage offset) runs the
+// byte kernel: a thread a byte on a grid-stride loop, its (row, column)
+// advanced by the stride with no division a byte.  The launcher chooses per
+// call; nothing is padded and nothing is written outside marks.
+constexpr int kPullThreads = 256;
+constexpr int kPullItems = 4;  // items a thread (PERF.md: by measurement)
+constexpr int kPullItemBytes = 16;
+
+// The byte kernel.
+__global__ void pull_ss_bytes(const uint8_t* __restrict__ masks,
+                              const uint8_t* __restrict__ alphas,
+                              uint8_t* __restrict__ marks, int64_t total,
+                              int64_t tau) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += stride) {
-    marks[i] = (masks[i] & alphas[i / tau]) != 0;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  int64_t row = i / tau, col = i - row * tau;
+  const int64_t step_rows = stride / tau, step_cols = stride - step_rows * tau;
+  for (; i < total; i += stride) {
+    marks[i] = (masks[i] & alphas[row]) != 0;
+    row += step_rows;
+    col += step_cols;
+    if (col >= tau) {
+      col -= tau;
+      ++row;
+    }
   }
+}
+
+// Per byte of m: 1 where (byte & alpha) != 0, else 0 (a4: alpha in every
+// byte).  The high bit of ((t & 0x7f) + 0x7f) | t is set iff t != 0.
+__device__ __forceinline__ uint32_t pull_word(uint32_t m, uint32_t a4) {
+  const uint32_t t = m & a4;
+  const uint32_t nz = ((t & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | t;
+  return (nz >> 7) & 0x01010101u;
+}
+
+// The item kernel; kShift = log2(tau / 16), or -1 for a run-time row_items
+// = tau / 16.
+template <int kShift>
+__global__ void __launch_bounds__(kPullThreads)
+    pull_ss_items(const uint4* __restrict__ masks,
+                  const uint8_t* __restrict__ alphas,
+                  uint4* __restrict__ marks, uint32_t items,
+                  uint32_t row_items) {
+  constexpr uint32_t kChunk = kPullThreads * kPullItems;
+  for (uint32_t i0 = blockIdx.x * kChunk + threadIdx.x; i0 < items;
+       i0 += gridDim.x * kChunk) {
+    uint4 m[kPullItems];
+    uint32_t a[kPullItems];
+#pragma unroll
+    for (int k = 0; k < kPullItems; ++k) {
+      const uint32_t i = i0 + k * kPullThreads;
+      m[k] = make_uint4(0, 0, 0, 0);
+      a[k] = 0;
+      if (i < items) {
+        uint32_t row;
+        if constexpr (kShift >= 0) {
+          row = i >> kShift;
+        } else {
+          row = i / row_items;
+        }
+        m[k] = __ldg(masks + i);
+        a[k] = __ldg(alphas + row);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPullItems; ++k) {
+      const uint32_t i = i0 + k * kPullThreads;
+      if (i < items) {
+        const uint32_t a4 = a[k] * 0x01010101u;
+        __stcs(marks + i,
+               make_uint4(pull_word(m[k].x, a4), pull_word(m[k].y, a4),
+                          pull_word(m[k].z, a4), pull_word(m[k].w, a4)));
+      }
+    }
+  }
+}
+
+// Blocks of `kernel` resident on the whole card at once: one wave.
+template <typename Kernel>
+int64_t wave_blocks(Kernel kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  const int64_t wave = static_cast<int64_t>(sms) * per_sm;
+  return wave > 0 ? wave : 1;  // a failed query shows at the launch check
+}
+
+template <int kShift>
+void launch_pull_items(const uint8_t* masks, const uint8_t* alphas,
+                       uint8_t* marks, int64_t items, int64_t row_items,
+                       cudaStream_t st) {
+  static const int64_t wave = wave_blocks(pull_ss_items<kShift>,
+                                          kPullThreads);
+  const int64_t chunks = (items + kPullThreads * kPullItems - 1)
+                         / (kPullThreads * kPullItems);
+  pull_ss_items<kShift>
+      <<<static_cast<unsigned>(chunks < wave ? chunks : wave), kPullThreads,
+         0, st>>>(reinterpret_cast<const uint4*>(masks), alphas,
+                  reinterpret_cast<uint4*>(marks),
+                  static_cast<uint32_t>(items),
+                  static_cast<uint32_t>(row_items));
 }
 
 // Replaces repro/kernels/pull_ss.py::pull_ss_packed.  One thread per 32-bit
@@ -217,11 +335,29 @@ extern "C" {
 
 int blest_pull_ss(const void* masks, const void* alphas, void* marks,
                   int64_t n_v, int64_t tau, void* stream) {
+  if (n_v < 1 || tau < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* m = static_cast<const uint8_t*>(masks);
+  const auto* a = static_cast<const uint8_t*>(alphas);
+  auto* out = static_cast<uint8_t*>(marks);
   const int64_t total = n_v * tau;
-  pull_ss_kernel<<<grid_for(total), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(masks), static_cast<const uint8_t*>(alphas),
-      static_cast<uint8_t*>(marks), total, tau);
+  if (tau % kPullItemBytes != 0
+      || (reinterpret_cast<uintptr_t>(m) | reinterpret_cast<uintptr_t>(out))
+             % kPullItemBytes != 0) {
+    pull_ss_bytes<<<grid_for(total), kThreads, 0, st>>>(m, a, out, total,
+                                                        tau);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int64_t items = total / kPullItemBytes;
+  const int64_t row_items = tau / kPullItemBytes;
+  if (items > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  switch (row_items) {
+    case 1: launch_pull_items<0>(m, a, out, items, row_items, st); break;
+    case 2: launch_pull_items<1>(m, a, out, items, row_items, st); break;
+    case 4: launch_pull_items<2>(m, a, out, items, row_items, st); break;
+    case 8: launch_pull_items<3>(m, a, out, items, row_items, st); break;
+    default: launch_pull_items<-1>(m, a, out, items, row_items, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,6 +24,9 @@ from repro_torch.kernels import _build
 if sys.byteorder != "little":
     raise ImportError("repro_torch's packed words are little-endian views")
 
+# the byte pull's 32-bit index of 16-byte items (csrc/blest_ss.cu)
+MAX_ITEMS = 2**31 - 1
+
 
 def _check(t: torch.Tensor, dtype: torch.dtype, ndim: int, what: str):
     if not t.is_cuda:
@@ -47,7 +50,12 @@ def pull_ss(masks: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
     """marks = (masks & alphas[:, None]) != 0 on the GPU.
 
     masks: (N_v, tau) uint8; alphas: (N_v,) uint8 -> (N_v, tau) uint8.
+    The kernel indexes 16-byte items in 32 bits, so masks of more than
+    ``MAX_ITEMS`` items (32 GiB) are refused.
     """
+    if masks.numel() // 16 > MAX_ITEMS:
+        raise ValueError(f"masks {tuple(masks.shape)} exceed the "
+                         f"{MAX_ITEMS} 16-byte items the kernel indexes")
     _check_pull(masks, alphas, torch.uint8)
     n_v, tau = masks.shape
     marks = torch.empty_like(masks)
