@@ -23,7 +23,8 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    ``pull_mma_ms_packed_bmma``), and a ragged VSS count that the MMA pull
    must refuse; ``frontier_sweep`` on 0/1 bytes and on any bytes, from
    aligned tensors and from views one element in (every input, or the
-   level alone); ``pull_ss`` also on any bytes at tau in {16, 128} (its
+   level alone), each with ``ell`` an int and on the device (the
+   instance a captured level reads); ``pull_ss`` also on any bytes at tau in {16, 128} (its
    item kernel's shift instances) and 48 (its division instance), a
    ragged N_v, from fresh tensors and views one row in (the 16-byte item
    kernel) and from views one element in (its byte kernel); the packed pull also on mask bytes with bits above sigma,
@@ -40,8 +41,11 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    through ``Blest.preprocess(g, reorder="natural", probe_switching=True)``
    and ``Blest.bfs`` from 4 seeded sources under all 8 driver combinations
    (fused/bucketed x lazy/eager x packed/unpacked), each equal to the
-   ``ref_bfs.bfs_levels`` oracle.  Launch counts are zeroed just before and
-   read just after; every single-source kernel must have launched.  Then
+   ``ref_bfs.bfs_levels`` oracle; the fused driver runs its levels in
+   windows (a CUDA graph of one level under a conditional node on a device
+   flag, one read a window).  Launch counts are zeroed just before and
+   read just after (a kernel in a window counts once for each level the
+   window ran); every single-source kernel must have launched.  Then
    each kernel at the production shapes (sigma, tau) = (8, 128) of this
    graph: equality with its plain version, and times (also as a replayed
    CUDA graph's device time).
@@ -71,8 +75,10 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    first two also as the device time of a replayed CUDA graph of the calls,
    which leaves the host's enqueue cost out), bounds.  Each graph's one
    dense single-source level also times ``pull_ss_packed`` and
-   ``frontier_sweep`` that way, beside their byte bounds, and holds that
-   level's ``frontier_sweep`` against its plain version; on road,
+   ``frontier_sweep`` that way, beside their byte bounds, holds that
+   level's ``frontier_sweep`` against its plain version, and sets the
+   level back to back and with a flag read beside a level in a window (a
+   windowed ``FusedBfs`` from the source, per level); on road,
    ``pull_ss`` (which the road path, packed, does not launch) is held and
    timed the same way on road's masks and that level's alphas.
 5. Every family of ``data/graphs.FAMILIES`` at scale 10 with automatic
@@ -90,13 +96,21 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    levels; (b) the same stream with ``layout="mma", switching="off"``;
    (c) with ``layout="auto", switching="auto"`` (the probe's verdict is
    logged); (d) road-20, kappa = 32, 64 tickets, switching on, over 2,000
-   ticks; (e) every family at scale 10 under each layout and switching
-   mode.  Every ticket of (a)-(d) must equal its expected values, those
-   from the oracle's sources the oracle too, and every ticket of (e) the
-   oracle.  Every serve kernel and ``pull_ms`` / ``scatter_or`` must have
-   launched.  Then kernels 8-10 at kron-22's shapes: equality with their
-   plain versions, times, bounds, and the unfused dense levels they
-   replace.
+   ticks; then megatick windows, each engine beside its megatick-1 twin:
+   (f) kron-22, kappa = 256, ``layout="packed", switching="off",
+   megatick=64`` on the 512 tickets, (g) road-20, kappa = 32,
+   ``switching="off", megatick=64`` on the 64 tickets, which must take
+   fewer host syncs than levels; (e) every family at scale 10 under each
+   layout and switching mode, and (h) the same at megatick 64.  Every
+   ticket of (a)-(d), (f), (g) must equal its expected values, those from
+   the oracle's sources the oracle too, and every ticket of (e) and (h)
+   the oracle; every engine at megatick 64 (of (h), those with switching
+   off) must have run windows.  Every window runs (its uploads, start and
+   launches) under ``torch.cuda.set_sync_debug_mode("error")``, so a
+   synchronising operation there fails the run; its one read is outside.
+   Every serve kernel and ``pull_ms`` / ``scatter_or`` must have launched.
+   Then kernels 8-10 at kron-22's shapes: equality with their plain
+   versions, times, bounds, and the unfused dense levels they replace.
 
 Prints, before the last line: the card's name and power limit (as
 nvidia-smi gives them), one JSON line ``{"kernels": [...]}`` (launches on the
@@ -114,8 +128,10 @@ depth per BFS; per-stage ms of one dense level) and one JSON line
 ``{"msbfs": [...]}`` (per multi-source run: graph, layout, kappa, levels,
 ms, lane-edges/s; per-stage ms of one dense multi-source level) and one
 JSON line ``{"serve": [...]}`` (per engine: graph, layout, switching,
-kappa, tickets, build and wall seconds, tickets/s, lane-edges/s, dense and
-queued levels, ms per tick, p50 and p99 ticket latency).  The last line is
+kappa, megatick, windows that ran a level (``megaticks``), host syncs and
+syncs per level, the largest window graph's memory pool, tickets, build
+and wall seconds, tickets/s, lane-edges/s, dense and queued levels, ms
+per tick, p50 and p99 ticket latency).  The last line is
 ``{"ok": true, "device": {...}}``.
 
 Edges/s is the number of directed edges (u, v) of the graph whose source u
@@ -129,6 +145,7 @@ target lit up), over the wall time from the first submit to the drain.
 from __future__ import annotations
 
 import argparse
+import gc
 import hashlib
 import json
 import pathlib
@@ -196,7 +213,7 @@ class Smoke:
         import numpy as np
         import torch
 
-        from repro_torch.core import blest, msbfs, msbfs_packed, ref_bfs
+        from repro_torch.core import blest, msbfs, msbfs_packed, ref_bfs, window
         from repro_torch.core.bvss import BvssConfig, build_bvss
         from repro_torch.core.graph import Graph
         from repro_torch.core.pipeline import Blest
@@ -217,6 +234,10 @@ class Smoke:
                                                         Graph)
         self.graphs, self.ops, self.words = graphs, ops, words
         self.bfs_engine, self.workloads = bfs_engine, workloads
+        self.window = window
+        self.windows_run = 0      # LevelWindow.run calls, all phases
+        self.window_pools: list[int] = []  # each capture's pool bytes
+        self.instrument_windows()
         csrc = "src/repro_torch/kernels/csrc/blest_ss.cu"
         ms_src = "src/repro_torch/kernels/csrc/blest_ms.cu"
         serve_src = "src/repro_torch/kernels/csrc/blest_serve.cu"
@@ -288,6 +309,35 @@ class Smoke:
         self.graphs_n: dict = {}  # graph label -> n
 
     # ------------------------------------------------------------ helpers --
+    def instrument_windows(self):
+        """Every level window's run (its uploads, its start and its graph
+        launches) goes under ``torch.cuda.set_sync_debug_mode("error")``,
+        so an operation in it that synchronises with the host raises and
+        fails the phase; the window's one read comes after ``run``, outside
+        it.  Each capture's memory pool is recorded."""
+        torch, smoke = self.torch, self
+        cls = self.window.LevelWindow
+        run, capture = cls.run, cls.capture
+
+        def checked_run(w, length):
+            smoke.windows_run += 1
+            if w.device.type != "cuda":
+                return run(w, length)
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return run(w, length)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+
+        def recorded_capture(w):
+            had = w.captured
+            capture(w)
+            if w.captured and not had:
+                smoke.window_pools.append(w.pool_bytes)
+
+        cls.run, cls.capture = checked_run, recorded_capture
+
     def sync(self):
         if self.dev.type == "cuda":
             self.torch.cuda.synchronize()
@@ -428,11 +478,20 @@ class Smoke:
                 int(rng.integers(1, 60)))
 
     def sweep_case(self, rng, n, sigma, what):
+        """frontier_sweep on 0/1 bytes, with ell an int and (the device-ell
+        instance) a one-element int32 tensor on the card."""
         k = self.kernels["frontier_sweep"]
         args = self.sweep_inputs(rng, n)
-        self.same("frontier_sweep", k["fn"](*args, sigma=sigma),
-                  k["plain"](*args, sigma=sigma), f"{what} (n={n}, "
-                  f"sigma={sigma})")
+        for ell, w in self.ells(args[3]):
+            self.same("frontier_sweep", k["fn"](*args[:3], ell, sigma=sigma),
+                      k["plain"](*args[:3], ell, sigma=sigma),
+                      f"{what} (n={n}, sigma={sigma}, {w})")
+
+    def ells(self, ell):
+        """A level as the kernel argument and as a device int32 (0-d)."""
+        return ((ell, "ell an int"),
+                (self.torch.tensor(ell, dtype=self.torch.int32,
+                                   device=self.dev), "ell on the device"))
 
     def sweep_odd_case(self, rng, n, sigma, what):
         """frontier_sweep on bytes outside {0, 1} (any uint8, levels over
@@ -451,9 +510,10 @@ class Smoke:
                        ((1, 1, 1), "any bytes, views at element 1"),
                        ((0, 0, 1), "any bytes, level a view at element 1")):
             args = [x[o:o + n] for x, o in zip(full, off)]
-            self.same("frontier_sweep", k["fn"](*args, ell, sigma=sigma),
-                      k["plain"](*args, ell, sigma=sigma),
-                      f"{what}, {w} (n={n}, sigma={sigma})")
+            for e, we in self.ells(ell):
+                self.same("frontier_sweep", k["fn"](*args, e, sigma=sigma),
+                          k["plain"](*args, e, sigma=sigma),
+                          f"{what}, {w}, {we} (n={n}, sigma={sigma})")
 
     # --------------------------------------- phase 3: production shapes --
     def production_kernels(self, bd, counts):
@@ -534,10 +594,12 @@ class Smoke:
     def level_cost(self, b, src, label, depth: int):
         """Device time of each stage of one dense level (packed pull, the
         graph's own lazy/eager mechanics) at the state ``depth`` levels from
-        ``src``, and of the whole level back to back against one level of
-        the fused loop with its per-level flag read (a host sync); the
-        level's frontier_sweep held against its plain version.  Returns the
-        level's alphas."""
+        ``src``, and of the whole level back to back, against one level
+        with a flag read after it (a host sync, as the port's loop was
+        before its windows) and against a level in a window (a windowed
+        ``FusedBfs`` from ``src``, over its levels); the level's
+        frontier_sweep held against its plain version.  Returns the level's
+        alphas."""
         blest, ops, bd = self.blest, self.ops, b.bd
         state = blest.init_state(bd, int(b.perm[src]))
         for _ in range(depth):
@@ -577,9 +639,20 @@ class Smoke:
             "level_with_flag_read": lambda: bool(level().f_words.any()),
         }
         n_v, tau = bd.masks.shape
+        stage_ms = {k: self.time_ms(f) for k, f in stages.items()}
+        # a level in a window: a whole windowed BFS from src (its reads
+        # once a window and its skipped launches included), per level
+        fused = blest.FusedBfs(bd, lazy=b.stats.lazy, packed=True)
+        s = int(b.perm[src])
+        lv = fused(s)
+        levels = int(lv[lv != blest.UNREACHED].max()) + 1
+        stage_ms["level_in_window"] = self.time_ms(
+            lambda: fused(s), iters=3, warmup=1) / levels
         row = {"graph": label, "lazy": b.stats.lazy, "depth": depth,
                "frontier_sets": int((state.f_words != 0).sum()),
-               "stage_ms": {k: self.time_ms(f) for k, f in stages.items()},
+               "window_levels": levels,
+               "window_pool_bytes": fused.window.pool_bytes,
+               "stage_ms": stage_ms,
                # the two kernels' device time, without the host's enqueue
                "graph_ms": {k: self.time_graph_ms(stages[k])
                             for k in ("pull_ss_packed", "frontier_sweep")},
@@ -1185,8 +1258,16 @@ class Smoke:
                     torch.where(diff == 1, st.ell, st.levels)
                     if st.levels.numel() else None)
 
+        # the fused driver's level updates its state in place: time it on
+        # a copy of the state (the work of a dense level does not depend on
+        # how far the copy has gone)
+        st_l = st._replace(**{k: getattr(st, k).clone() for k in (
+            "v_curr", "f_planes", "far", "reach")})
+
         def level():
-            return ms._ms_level(bd, st, track_levels=False)
+            ms._ms_step(bd, st_l, bd.masks, bd.row_ids, bd.v2r, st.ell,
+                        track_levels=False)
+            return st_l
 
         byte = {
             "pull_ms": lambda: ops.pull_ms(bd.masks, st.f_planes, bd.v2r,
@@ -1378,6 +1459,8 @@ class Smoke:
         once, drain it, check every ticket; returns the engine's row."""
         np = self.np
         eng = self.bfs_engine.BfsEngine(device=self.dev, **kw)
+        pools = len(self.window_pools)
+        windows = self.windows_run
         eng.register_graph(label, g)
         self.sync()
         t0 = time.perf_counter()
@@ -1404,11 +1487,19 @@ class Smoke:
         st = eng.stats
         if st["admissions_midflight"] == 0:
             fail(f"{label} {kw}: no mid-flight admission")
+        megatick = kw.get("megatick", 1)
+        if megatick > 1 and st["megaticks"] == 0:
+            fail(f"{label} {kw}: no megatick window ran a level")
         lat = np.array([t.latency for t in tickets]) * 1e3
         row = {
             "graph": label, "layout": kw["layout"],
             "resolved_layout": eng._runners[label].layout,
             "switching": kw["switching"], "kappa": kw["kappa"],
+            "megatick": megatick, "megaticks": st["megaticks"],
+            "windows": self.windows_run - windows,
+            "window_pool_bytes": max(self.window_pools[pools:], default=0),
+            "host_syncs": st["host_syncs"],
+            "syncs_per_level": st["host_syncs"] / st["levels"],
             "tickets": len(tickets), "build_s": build_s, "wall_s": wall,
             "tickets_per_s": len(tickets) / wall,
             "lane_edges_per_s": sum(e["edges"] for e in expect) / wall,
@@ -1428,15 +1519,17 @@ class Smoke:
         self.serve_rows.append(row)
         log(f"serve {row}")
         del eng, art, tickets
+        gc.collect()  # the runners' windows hold their buffers in cycles
         if self.dev.type == "cuda":
             self.torch.cuda.empty_cache()
         return row
 
-    def serve_families(self):
+    def serve_families(self, megatick: int = 1):
         """Every family at scale 10 under each layout x switching: every
-        ticket through verify_result against ref_bfs."""
+        ticket through verify_result against ref_bfs.  At ``megatick`` > 1
+        every engine with switching off must have run windows."""
         t0 = time.perf_counter()
-        tickets = 0
+        tickets = windows = 0
         for family in self.graphs.FAMILIES:
             g = self.graphs.make(family, 10)
             label = f"{family}-10"
@@ -1447,7 +1540,7 @@ class Smoke:
                 for switching in ("off", "on", "auto"):
                     eng = self.bfs_engine.BfsEngine(
                         kappa=32, layout=layout, switching=switching,
-                        device=self.dev)
+                        megatick=megatick, device=self.dev)
                     eng.register_graph(label, g)
                     ts = [eng.submit(label, src, kind, target=tgt)
                           for kind, src, tgt in specs]
@@ -1458,11 +1551,18 @@ class Smoke:
                                 t.result(), t.query, want[t.query.source],
                                 unreached=self.ref_bfs.UNREACHED)
                         except AssertionError as e:
-                            fail(f"{label} {layout}/{switching}: {e}")
+                            fail(f"{label} {layout}/{switching} megatick "
+                                 f"{megatick}: {e}")
                     tickets += len(ts)
-            log(f"{label} serve ok")
+                    windows += eng.stats["megaticks"]
+                    if (megatick > 1 and switching == "off"
+                            and eng.stats["megaticks"] == 0):
+                        fail(f"{label} {layout}/off megatick {megatick}: "
+                             "no window ran a level")
+            log(f"{label} serve ok (megatick {megatick})")
         self.serve_rows.append({"graph": "families-10", "layout": "all",
                                 "switching": "all", "kappa": 32,
+                                "megatick": megatick, "megaticks": windows,
                                 "tickets": tickets,
                                 "wall_s": time.perf_counter() - t0})
 
@@ -1501,9 +1601,22 @@ class Smoke:
         if d["ticks"] <= depth:
             fail(f"{rlabel}: {d['ticks']} ticks, fewer than the {depth} "
                  "levels of one lane")
+        # (f) and (g): megatick windows, each beside its megatick-1 twin
+        for mt in (1, 64):
+            self.serve_engine(klabel, kg, kspecs, kexp, kappa=256,
+                              layout="packed", switching="off", megatick=mt,
+                              **common)
+        for mt in (1, 64):
+            g = self.serve_engine(rlabel, rg, rspecs, rexp, kappa=32,
+                                  layout="packed", switching="off",
+                                  megatick=mt)
+        if g["syncs_per_level"] >= 1:
+            fail(f"{rlabel} megatick 64: {g['syncs_per_level']:.3f} host "
+                 "syncs per level, not below 1")
         self.sync()
-        kron_road = ops.launch_counts()  # (a)-(d): the full-size graphs
+        kron_road = ops.launch_counts()  # (a)-(g): the full-size graphs
         self.serve_families()
+        self.serve_families(megatick=64)  # (h)
         self.sync()
         counts = ops.launch_counts()
         log(f"serve path launches: {counts}")

@@ -2,11 +2,13 @@
 
 Two drivers, as in ``repro.core.blest``:
 
-* :func:`bfs_fused` — dense work per level over all VSSs, with inactive VSSs
-  neutralized by an all-zero frontier word (the queue is implicit).  The
-  reference holds the level loop on the device in a ``lax.while_loop``;
-  here it is a host loop that reads one flag per level (``f_words.any()``)
-  to decide whether to go on.
+* :func:`bfs_fused` / :class:`FusedBfs` — dense work per level over all
+  VSSs, with inactive VSSs neutralized by an all-zero frontier word (the
+  queue is implicit).  The reference holds the level loop on the device in
+  a ``lax.while_loop``; here the loop runs in windows of
+  ``FUSED_WINDOW`` levels (:class:`repro_torch.core.window.LevelWindow`:
+  a CUDA graph of one level gated on a device flag), with one
+  device->host read a window instead of one a level.
 * :class:`BucketedBfs` — per-level host loop with frontier-compacted
   scheduling: active VSS ids are gathered into power-of-two padded buckets,
   so work is proportional to |Q|*tau rather than N_v*tau.  Eq. (6)
@@ -33,10 +35,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.bvss import Bvss
+from repro_torch.core.window import LevelWindow
 from repro_torch.kernels import ops
 
 UNREACHED = np.iinfo(np.int32).max
 VSS_PAD = 8  # N_v padded to a multiple of this (and >= 1 extra padding row)
+# levels a window of the fused drivers runs between two reads of the device
+# (core/msbfs.py too): a window that ends early costs its remaining replays
+# of a skipped conditional node, so a shallow BFS pays little for it
+FUSED_WINDOW = 32
+_INT32 = np.iinfo(np.int32)
 
 
 def resolve_device(device) -> torch.device:
@@ -161,7 +169,7 @@ class BfsState(NamedTuple):
     v: torch.Tensor        # (n_ext,) uint8 visited
     level: torch.Tensor    # (n_ext,) int32
     f_words: torch.Tensor  # (num_sets_ext,) uint8 — current frontier words
-    ell: int               # next level to assign
+    ell: int | torch.Tensor  # next level (a device int32 in a window)
 
 
 def init_state(bd: BvssDevice, src: int) -> BfsState:
@@ -226,19 +234,22 @@ def bfs_fused(
 ) -> torch.Tensor:
     """Dense-per-level BFS; returns the level tensor (n,) int32 on bd.device.
 
-    One device->host read per level (the frontier-nonempty flag).
-    """
-    _check_packed(bd, packed)
-    max_levels = bd.n_ext if max_levels is None else max_levels
-    state = init_state(bd, src)
-    while state.ell <= max_levels and bool(state.f_words.any()):
-        state = _level_dense(bd, state, lazy=lazy, packed=packed)
-    return state.level[: bd.n]
+    One device->host read per window of ``FUSED_WINDOW`` levels."""
+    return FusedBfs(bd, lazy=lazy, packed=packed)(src, max_levels=max_levels)
+
+
+def clamp_int32(x: int) -> int:
+    return int(min(max(x, _INT32.min), _INT32.max))
 
 
 @dataclasses.dataclass
 class FusedBfs:
-    """Fused BFS bound to one graph (source is a runtime arg)."""
+    """Fused BFS bound to one graph (source is a runtime arg).
+
+    Holds the loop-carried state (visited bytes, levels, frontier words)
+    and the level window over it, captured at the first call and replayed
+    by every later one: the loop is ``repro``'s ``cond`` (a frontier word
+    set and ``ell <= max_levels``) around :func:`_level_dense`."""
 
     bd: BvssDevice
     lazy: bool = True
@@ -246,9 +257,44 @@ class FusedBfs:
 
     def __post_init__(self):
         _check_packed(self.bd, self.packed)
+        bd, dev = self.bd, self.bd.device
+        self._v = torch.zeros(bd.n_ext, dtype=torch.uint8, device=dev)
+        self._level = torch.full((bd.n_ext,), UNREACHED, dtype=torch.int32,
+                                 device=dev)
+        self._f = torch.zeros(bd.num_sets_ext, dtype=torch.uint8, device=dev)
+        self._max = torch.zeros((), dtype=torch.int32, device=dev)
+        self.window = LevelWindow(self._body, self._cond, device=dev)
 
-    def __call__(self, src: int) -> torch.Tensor:
-        return bfs_fused(self.bd, src, lazy=self.lazy, packed=self.packed)
+    def _cond(self) -> None:
+        w = self.window
+        torch.logical_and(self._f.any(), w.ell <= self._max, out=w.go)
+
+    def _body(self) -> None:
+        w = self.window
+        st = _level_dense(self.bd, BfsState(self._v, self._level, self._f,
+                                            w.ell),
+                          lazy=self.lazy, packed=self.packed)
+        self._v.copy_(st.v)
+        self._level.copy_(st.level)
+        self._f.copy_(st.f_words)
+        w.ell.add_(1)
+        self._cond()
+
+    def __call__(self, src: int, max_levels: int | None = None
+                 ) -> torch.Tensor:
+        bd = self.bd
+        src = int(src)
+        max_levels = bd.n_ext if max_levels is None else max_levels
+        self._v.zero_()
+        self._v[src] = 1
+        self._level.fill_(UNREACHED)
+        self._level[src] = 0
+        self._f.zero_()
+        self._f[src // bd.sigma] = 1 << (src % bd.sigma)
+        self._max.fill_(clamp_int32(max_levels))
+        self.window.ell.fill_(1)
+        self.window.run_until_done(FUSED_WINDOW, 1)
+        return self._level[: bd.n].clone()
 
 
 # --------------------------------------------------------------------------

@@ -31,15 +31,14 @@ def closeness(
         sources = np.arange(n, dtype=np.int32)
     far = np.zeros(bd.n_ext, np.int64)
     reach = np.zeros(bd.n_ext, np.int64)
-    runner = msbfs.BucketedMsBfs(bd) if bucketed else None
+    # one fused runner for every batch: its level window is captured once
+    runner = (msbfs.BucketedMsBfs(bd) if bucketed
+              else msbfs.FusedMsBfs(bd, kappa))
     for start in range(0, len(sources), kappa):
         batch = sources[start : start + kappa]
         padded = np.full(kappa, -1, np.int32)
         padded[: len(batch)] = batch
-        if bucketed:
-            state = runner(padded)
-        else:
-            state = msbfs.msbfs_fused(bd, padded)
+        state = runner(padded)
         far += state.far.cpu().numpy().astype(np.int64)
         reach += state.reach.cpu().numpy().astype(np.int64)
     far = far[:n]

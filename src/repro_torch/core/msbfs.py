@@ -15,6 +15,12 @@ exact here too.
 activeSets / dirtySets (paper §6.1): in the fused driver both are implicit —
 inactive slice sets contribute all-zero frontier tiles.  The bucketed driver
 exposes ``activeSets`` as the VSS queue.
+
+The fused driver (:class:`FusedMsBfs`) runs its levels in windows of
+``blest.FUSED_WINDOW`` (:class:`repro_torch.core.window.LevelWindow`), one
+device->host read a window, as ``repro`` runs them in one
+``lax.while_loop``.  A level updates the state's tensors in place, so the
+window's captured graph keeps reading and writing the same buffers.
 """
 from __future__ import annotations
 
@@ -24,8 +30,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.blest import (UNREACHED, BvssDevice, bucket_size,
+from repro_torch.core.blest import (FUSED_WINDOW, UNREACHED, BvssDevice,
+                                    bucket_size, clamp_int32,
                                     expand_active_sets)
+from repro_torch.core.window import LevelWindow, stamp
 from repro_torch.kernels import ops
 
 
@@ -38,6 +46,7 @@ class MsBfsState(NamedTuple):
     # driver accumulates across batches in int64 on the host.
     levels: torch.Tensor    # (n_ext, kappa) int32, or (0, 0) if not tracked
     ell: int                # next level to assign
+    # the fused driver returns its own buffers: valid until its next call
 
 
 def frontier_planes(bd: BvssDevice, v_or_diff: torch.Tensor) -> torch.Tensor:
@@ -74,9 +83,11 @@ def init_ms_state(bd: BvssDevice, sources, *,
     )
 
 
-def _ms_step(bd: BvssDevice, state: MsBfsState, masks, rows, v2r, *,
-             track_levels: bool) -> MsBfsState:
-    """One level over the VSSs given by (masks, rows, v2r)."""
+def _ms_step(bd: BvssDevice, state: MsBfsState, masks, rows, v2r, ell, *,
+             track_levels: bool) -> None:
+    """One level over the VSSs given by (masks, rows, v2r), in place on
+    ``state``'s tensors; ``ell`` (an int, or a device int32 in a window) is
+    the level it assigns."""
     kappa = state.v_curr.shape[1]
     # Stage 1 — lazy marking via the pull
     marks = ops.pull_ms(masks, state.f_planes, v2r, sigma=bd.sigma)
@@ -85,19 +96,14 @@ def _ms_step(bd: BvssDevice, state: MsBfsState, masks, rows, v2r, *,
     # Stage 2 — frontier finalization (dense)
     diff = v_next & (1 - state.v_curr)
     new_per_vertex = diff.sum(dim=1, dtype=torch.int32)
-    levels = state.levels
     if track_levels:
-        levels = torch.where(diff == 1, state.ell, levels)
-    return MsBfsState(v_next, frontier_planes(bd, diff),
-                      state.far + state.ell * new_per_vertex,
-                      state.reach + new_per_vertex, levels, state.ell + 1)
-
-
-def _ms_level(bd: BvssDevice, state: MsBfsState, *,
-              track_levels: bool) -> MsBfsState:
-    """One dense level over all VSSs."""
-    return _ms_step(bd, state, bd.masks, bd.row_ids, bd.v2r,
-                    track_levels=track_levels)
+        stamp(state.levels, diff == 1, ell)
+    state.far.add_(new_per_vertex * ell)
+    state.reach.add_(new_per_vertex)
+    state.v_curr.copy_(v_next)
+    # the sentinel slice set's tiles stay zero
+    state.f_planes[: bd.num_sets].copy_(
+        diff[: bd.n_pad].view(bd.num_sets, bd.sigma, kappa))
 
 
 def msbfs_fused(
@@ -109,14 +115,55 @@ def msbfs_fused(
 ) -> MsBfsState:
     """Run kappa=len(sources) concurrent BFSs to completion.
 
-    The reference's ``lax.while_loop`` is a host loop here that tests its
-    condition before every level (an all-padding batch runs none), with one
-    flag read per level."""
-    max_levels = bd.n_ext if max_levels is None else max_levels
-    state = init_ms_state(bd, sources, track_levels=track_levels)
-    while state.ell <= max_levels and bool(state.f_planes.any()):
-        state = _ms_level(bd, state, track_levels=track_levels)
-    return state
+    The reference's ``lax.while_loop``, in windows of levels with one flag
+    read a window; its condition is tested before the first level, so an
+    all-padding batch runs none."""
+    return FusedMsBfs(bd, len(sources), track_levels=track_levels)(
+        sources, max_levels=max_levels)
+
+
+class FusedMsBfs:
+    """The fused multi-source driver bound to one graph and a batch width:
+    its state buffers and level window are made at the first call and
+    reused by every later one (closeness runs all its batches through one).
+    A call returns the state buffers themselves, valid until the next."""
+
+    def __init__(self, bd: BvssDevice, kappa: int, *,
+                 track_levels: bool = False):
+        self.bd, self.kappa, self.track_levels = bd, int(kappa), track_levels
+        self.state: MsBfsState | None = None
+        self._max = torch.zeros((), dtype=torch.int32, device=bd.device)
+        self.window = LevelWindow(self._body, self._cond, device=bd.device)
+
+    def _cond(self) -> None:
+        w = self.window
+        torch.logical_and(self.state.f_planes.any(), w.ell <= self._max,
+                          out=w.go)
+
+    def _body(self) -> None:
+        bd, w = self.bd, self.window
+        _ms_step(bd, self.state, bd.masks, bd.row_ids, bd.v2r, w.ell,
+                 track_levels=self.track_levels)
+        w.ell.add_(1)
+        self._cond()
+
+    def __call__(self, sources, max_levels: int | None = None
+                 ) -> MsBfsState:
+        bd = self.bd
+        if len(sources) != self.kappa:
+            raise ValueError(f"want {self.kappa} sources, got {len(sources)}")
+        fresh = init_ms_state(bd, sources, track_levels=self.track_levels)
+        if self.state is None:
+            self.state = fresh
+        else:
+            for buf, x in zip(self.state, fresh):
+                if isinstance(buf, torch.Tensor):
+                    buf.copy_(x)
+        max_levels = bd.n_ext if max_levels is None else max_levels
+        self._max.fill_(clamp_int32(max_levels))
+        self.window.ell.fill_(1)
+        ell = self.window.run_until_done(FUSED_WINDOW, 1)
+        return self.state._replace(ell=ell)
 
 
 @dataclasses.dataclass
@@ -141,10 +188,10 @@ class BucketedMsBfs:
             padded = np.full(bucket_size(qids.size), bd.num_vss, np.int32)
             padded[: qids.size] = qids
             q = torch.from_numpy(padded).to(bd.device)
-            state = _ms_step(bd, state, bd.masks.index_select(0, q),
-                             bd.row_ids.index_select(0, q),
-                             bd.v2r.index_select(0, q),
-                             track_levels=self.track_levels)
+            _ms_step(bd, state, bd.masks.index_select(0, q),
+                     bd.row_ids.index_select(0, q), bd.v2r.index_select(0, q),
+                     state.ell, track_levels=self.track_levels)
+            state = state._replace(ell=state.ell + 1)
         return state
 
 

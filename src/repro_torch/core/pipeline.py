@@ -49,6 +49,9 @@ class Blest:
     inv_perm: np.ndarray    # new id -> old id
     stats: PreprocessStats
     eta: float = switching.ETA_DEFAULT
+    # fused drivers by (lazy, packed), made at first use: each keeps its
+    # captured level window for every later source
+    _fused: dict = dataclasses.field(default_factory=dict, repr=False)
 
     # -------------------------------------------------------------- build --
     @classmethod
@@ -107,7 +110,11 @@ class Blest:
         lazy = self.stats.lazy if lazy is None else lazy
         s = int(self.perm[src])
         if mode == "fused":
-            lv = blest.bfs_fused(self.bd, s, lazy=lazy, packed=packed)
+            runner = self._fused.get((lazy, packed))
+            if runner is None:
+                runner = self._fused[lazy, packed] = blest.FusedBfs(
+                    self.bd, lazy=lazy, packed=packed)
+            lv = runner(s)
         elif mode == "bucketed":
             eta = self.eta if self.stats.switching_enabled in (None, True) \
                 else None

@@ -9,9 +9,16 @@ loaded.  The build runs at first use, never at import; :func:`build_all`
 starts one nvcc per source, all at once.  :func:`library` loads each library
 once per process under a lock, so the serve engine's builder thread and the
 main thread may be the first callers together.
+
+Launch counts: a wrapper's ``launches`` counts the launches that ran.  A
+call made while its stream is being captured into a CUDA graph launches
+nothing; inside :func:`tally_captures` it is tallied instead, and the owner
+of the graph credits the tally once for each time the captured body ran
+(:func:`credit`).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,6 +45,8 @@ SIGNATURES = {
         "blest_pull_ss_packed": ([_P, _P, _P, _I64, _I64, _P], _INT),
         "blest_frontier_sweep": (
             [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _P], _INT),
+        "blest_frontier_sweep_dev": (
+            [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _P, _P], _INT),
         "blest_error_string": ([_INT], ctypes.c_char_p),
     },
     "blest_ms": {
@@ -62,9 +71,17 @@ SIGNATURES = {
         "blest_fused_vss_per_block": ([_INT, _INT, _INT], _INT),
         "blest_error_string": ([_INT], ctypes.c_char_p),
     },
+    "blest_graph": {
+        "blest_if_graph": ([_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P)],
+                           _INT),
+        "blest_graph_launch": ([_P, _P], _INT),
+        "blest_graph_destroy": ([_P, _P], _INT),
+        "blest_error_string": ([_INT], ctypes.c_char_p),
+    },
 }
 _LOCK = threading.Lock()  # guards _LIBS and the launch counters
 _LIBS: dict[str, ctypes.CDLL] = {}
+_CAPTURE = threading.local()  # .tally: this thread's capture tally, if any
 
 
 def nvcc() -> str:
@@ -145,11 +162,36 @@ def launch(name: str, fn: str, device: torch.device, *args,
     """Calls ``fn`` of ``lib<name>`` with ``args`` and torch's current stream
     on ``device``; raises on a refused launch, else adds one to
     ``counter.launches`` (the wrapper's count; under the lock, since the
-    serve engine launches from its builder thread too)."""
+    serve engine launches from its builder thread too) or, while the stream
+    is being captured, to this thread's capture tally, if one is open."""
     lib = library(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         err = getattr(lib, fn)(*args, stream)
     check(lib, err, fn)
     with _LOCK:
-        counter.launches += 1
+        if not capturing:
+            counter.launches += 1
+            return
+        tally = getattr(_CAPTURE, "tally", None)
+        if tally is not None:
+            tally[counter] = tally.get(counter, 0) + 1
+
+
+@contextlib.contextmanager
+def tally_captures():
+    """Collects {wrapper: launches} of the calls this thread captures."""
+    prev = getattr(_CAPTURE, "tally", None)
+    _CAPTURE.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = prev
+
+
+def credit(tally: dict, times: int) -> None:
+    """Adds ``times`` runs of a captured body's launches to the counts."""
+    with _LOCK:
+        for counter, n in tally.items():
+            counter.launches += n * int(times)

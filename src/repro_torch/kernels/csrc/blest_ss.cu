@@ -213,6 +213,14 @@ __global__ void pull_ss_packed_kernel(const uint32_t* __restrict__ masks,
 // call where any pointer is off the alignment its vector accesses need (a
 // view with a storage offset) runs the per-vertex kernel over every set
 // instead.  Nothing is padded.
+//
+// Two instances of each kernel: ell a kernel argument (the per-level host
+// loops), or ell read from a device int32 (kDevEll; blest_frontier_sweep_dev),
+// which a captured CUDA graph of a level needs: a replay launches the
+// arguments it was captured with, so a level number that changes from
+// replay to replay has to live in device memory.  Each thread loads it once
+// (one address for the whole grid, served by the cache); the item and byte
+// maps are the same in both instances.
 constexpr int kSweepThreads = 128;
 constexpr int kSweepItem = 16;  // vertices an item
 
@@ -238,7 +246,15 @@ __device__ __forceinline__ void sweep_sets(
   }
 }
 
+// The level of this call: the argument, or the device int32 at ell_dev.
+template <bool kDevEll>
+__device__ __forceinline__ int32_t sweep_ell(const int32_t* ell_dev,
+                                             int32_t ell) {
+  return kDevEll ? __ldg(ell_dev) : ell;
+}
+
 // The per-vertex kernel: a thread per slice set, on a grid-stride loop.
+template <bool kDevEll>
 __global__ void frontier_sweep_sets(const uint8_t* __restrict__ v_curr,
                                     const uint8_t* __restrict__ v_next,
                                     const int32_t* __restrict__ level,
@@ -246,7 +262,10 @@ __global__ void frontier_sweep_sets(const uint8_t* __restrict__ v_curr,
                                     int32_t* __restrict__ level_out,
                                     uint8_t* __restrict__ f_words,
                                     uint8_t* __restrict__ active,
-                                    int64_t num_sets, int sigma, int32_t ell) {
+                                    int64_t num_sets, int sigma,
+                                    const int32_t* __restrict__ ell_dev,
+                                    int32_t ell_arg) {
+  const int32_t ell = sweep_ell<kDevEll>(ell_dev, ell_arg);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        s < num_sets; s += stride) {
@@ -273,7 +292,7 @@ __device__ __forceinline__ void store_set_bytes(uint8_t* p,
   }
 }
 
-template <int kSigma>
+template <int kSigma, bool kDevEll>
 __global__ void __launch_bounds__(kSweepThreads)
     frontier_sweep_items(const uint8_t* __restrict__ v_curr,
                          const uint8_t* __restrict__ v_next,
@@ -282,7 +301,10 @@ __global__ void __launch_bounds__(kSweepThreads)
                          int32_t* __restrict__ level_out,
                          uint8_t* __restrict__ f_words,
                          uint8_t* __restrict__ active, int64_t items,
-                         int64_t num_sets, int32_t ell) {
+                         int64_t num_sets,
+                         const int32_t* __restrict__ ell_dev,
+                         int32_t ell_arg) {
+  const int32_t ell = sweep_ell<kDevEll>(ell_dev, ell_arg);
   constexpr int kSets = kSweepItem / kSigma;  // slice sets an item
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kSweepThreads
                     + threadIdx.x;
@@ -327,6 +349,49 @@ __global__ void __launch_bounds__(kSweepThreads)
   for (int k = 0; k < kSets; ++k) act[k] = word[k] != 0;
   store_set_bytes<kSets>(f_words + i * kSets, word);
   store_set_bytes<kSets>(active + i * kSets, act);
+}
+
+// Both instances' launcher: the per-vertex kernel where any pointer is off
+// the alignment its vector accesses need, else the item kernel for sigma.
+template <bool kDevEll>
+int launch_frontier_sweep(const void* v_curr, const void* v_next,
+                          const void* level, void* v_out, void* level_out,
+                          void* f_words, void* active, int64_t num_sets,
+                          int sigma, const int32_t* ell_dev, int32_t ell,
+                          void* stream) {
+  if (num_sets < 1 || (sigma != 1 && sigma != 2 && sigma != 4 && sigma != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto misaligned = [](const void* p, uintptr_t bytes) {
+    return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) != 0;
+  };
+  const uintptr_t set_bytes = kSweepItem / sigma;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* vc = static_cast<const uint8_t*>(v_curr);
+  const auto* vn = static_cast<const uint8_t*>(v_next);
+  const auto* lv = static_cast<const int32_t*>(level);
+  auto* vo = static_cast<uint8_t*>(v_out);
+  auto* lo = static_cast<int32_t*>(level_out);
+  auto* fw = static_cast<uint8_t*>(f_words);
+  auto* ac = static_cast<uint8_t*>(active);
+  if (misaligned(vc, 16) || misaligned(vn, 16) || misaligned(lv, 16)
+      || misaligned(vo, 16) || misaligned(lo, 16)
+      || misaligned(fw, set_bytes) || misaligned(ac, set_bytes)) {
+    frontier_sweep_sets<kDevEll><<<grid_for(num_sets), kThreads, 0, st>>>(
+        vc, vn, lv, vo, lo, fw, ac, num_sets, sigma, ell_dev, ell);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int64_t items = num_sets * sigma / kSweepItem;
+  const bool tail = items * kSweepItem < num_sets * sigma;
+  const int64_t blocks = (items + tail + kSweepThreads - 1) / kSweepThreads;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = sigma == 1   ? frontier_sweep_items<1, kDevEll>
+                : sigma == 2 ? frontier_sweep_items<2, kDevEll>
+                : sigma == 4 ? frontier_sweep_items<4, kDevEll>
+                             : frontier_sweep_items<8, kDevEll>;
+  kernel<<<static_cast<unsigned>(blocks), kSweepThreads, 0, st>>>(
+      vc, vn, lv, vo, lo, fw, ac, items, num_sets, ell_dev, ell);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -375,39 +440,21 @@ int blest_frontier_sweep(const void* v_curr, const void* v_next,
                          const void* level, void* v_out, void* level_out,
                          void* f_words, void* active, int64_t num_sets,
                          int sigma, int ell, void* stream) {
-  if (num_sets < 1 || (sigma != 1 && sigma != 2 && sigma != 4 && sigma != 8)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto misaligned = [](const void* p, uintptr_t bytes) {
-    return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) != 0;
-  };
-  const uintptr_t set_bytes = kSweepItem / sigma;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* vc = static_cast<const uint8_t*>(v_curr);
-  const auto* vn = static_cast<const uint8_t*>(v_next);
-  const auto* lv = static_cast<const int32_t*>(level);
-  auto* vo = static_cast<uint8_t*>(v_out);
-  auto* lo = static_cast<int32_t*>(level_out);
-  auto* fw = static_cast<uint8_t*>(f_words);
-  auto* ac = static_cast<uint8_t*>(active);
-  if (misaligned(vc, 16) || misaligned(vn, 16) || misaligned(lv, 16)
-      || misaligned(vo, 16) || misaligned(lo, 16)
-      || misaligned(fw, set_bytes) || misaligned(ac, set_bytes)) {
-    frontier_sweep_sets<<<grid_for(num_sets), kThreads, 0, st>>>(
-        vc, vn, lv, vo, lo, fw, ac, num_sets, sigma, ell);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int64_t items = num_sets * sigma / kSweepItem;
-  const bool tail = items * kSweepItem < num_sets * sigma;
-  const int64_t blocks = (items + tail + kSweepThreads - 1) / kSweepThreads;
-  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = sigma == 1   ? frontier_sweep_items<1>
-                : sigma == 2 ? frontier_sweep_items<2>
-                : sigma == 4 ? frontier_sweep_items<4>
-                             : frontier_sweep_items<8>;
-  kernel<<<static_cast<unsigned>(blocks), kSweepThreads, 0, st>>>(
-      vc, vn, lv, vo, lo, fw, ac, items, num_sets, ell);
-  return static_cast<int>(cudaGetLastError());
+  return launch_frontier_sweep<false>(v_curr, v_next, level, v_out, level_out,
+                                      f_words, active, num_sets, sigma,
+                                      nullptr, ell, stream);
+}
+
+// The same sweep with the level read from the device int32 at ell_dev.
+int blest_frontier_sweep_dev(const void* v_curr, const void* v_next,
+                             const void* level, void* v_out, void* level_out,
+                             void* f_words, void* active, int64_t num_sets,
+                             int sigma, const void* ell_dev, void* stream) {
+  if (ell_dev == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_frontier_sweep<true>(v_curr, v_next, level, v_out, level_out,
+                                     f_words, active, num_sets, sigma,
+                                     static_cast<const int32_t*>(ell_dev), 0,
+                                     stream);
 }
 
 const char* blest_error_string(int err) {

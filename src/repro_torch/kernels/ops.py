@@ -45,7 +45,8 @@ def pull_ss_packed(masks_packed: torch.Tensor,
     return _pull_ss.pull_ss_packed(masks_packed, alphas)
 
 
-def frontier_sweep(v_curr, v_next, level, ell: int, *, sigma: int = 8):
+def frontier_sweep(v_curr, v_next, level, ell: int | torch.Tensor, *,
+                   sigma: int = 8):
     if _on_cpu(v_curr):
         return kref.frontier_sweep_ref(v_curr, v_next, level, ell, sigma=sigma)
     return _sweep.frontier_sweep(v_curr, v_next, level, ell, sigma=sigma)
@@ -107,7 +108,9 @@ def pull_scatter_mma_ms_packed(v, a_planes, f_packed, v2r, rows, *,
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of each CUDA kernel wrapper since the last reset."""
+    """Launches of each CUDA kernel wrapper since the last reset: calls
+    outside a CUDA graph capture, and the launches of captured level bodies
+    times the levels their replays ran (``core/window.py``)."""
     return {k.__name__: k.launches for k in KERNELS}
 
 

@@ -74,12 +74,15 @@ def frontier_sweep_ref(v_curr: torch.Tensor, v_next: torch.Tensor,
 
     v_curr, v_next: (n,) uint8 visited bytes in {0,1}, n % sigma == 0
     level:          (n,) int32
-    ell:            current BFS depth
+    ell:            current BFS depth: an int, or a one-element int32
+                    tensor (the kernel's device-``ell`` instance)
     returns (v_curr_new, level_new, f_words, active_sets):
       f_words     (n//sigma,) uint8 — sigma-bit frontier word per slice set
       active_sets (n//sigma,) uint8 in {0,1}
     """
     diff = v_next & (1 - v_curr)
+    if isinstance(ell, torch.Tensor):
+        ell = ell.reshape(())
     level_new = torch.where(diff != 0, ell, level)
     weights = 1 << torch.arange(sigma, dtype=torch.int32, device=diff.device)
     words = (diff.reshape(-1, sigma).to(torch.int32) * weights).sum(-1)

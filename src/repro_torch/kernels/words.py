@@ -32,7 +32,8 @@ def popcount32(words: torch.Tensor) -> torch.Tensor:
 def unpack_words(words: torch.Tensor, dtype=torch.uint8) -> torch.Tensor:
     """(..., kw) int32 words -> (..., kw*32) 0/1 lanes; lane 32w+l is bit l
     of word w."""
-    bits = (words[..., None] >> _shifts(words.device)) & 1  # masked: exact
+    # masked: exact; in place, so the int32 lanes exist once
+    bits = (words[..., None] >> _shifts(words.device)).bitwise_and_(1)
     return bits.to(dtype).reshape(*words.shape[:-1], words.shape[-1] * 32)
 
 

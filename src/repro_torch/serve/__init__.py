@@ -5,5 +5,6 @@ probe) behind a ticket-based, non-blocking service API with a hardened
 request lifecycle (``lifecycle``); what a lane computes is a
 :class:`~repro_torch.serve.workloads.Workload` plugin (``workloads``:
 ``bfs``/``closeness``/``distance``/``reach`` built in, ``register`` for
-more).  Counterpart of ``repro.serve``; megatick windows, the analytics
-kinds and mesh serving are not ported yet (ROADMAP.md queue 1)."""
+more), with megatick windows of up to T levels on the device.  Counterpart
+of ``repro.serve``; the analytics kinds and mesh serving are not ported
+yet (ROADMAP.md queue 1)."""

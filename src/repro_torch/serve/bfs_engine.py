@@ -64,15 +64,24 @@ model; a fault on a non-base layout quarantines ``(graph, layout)`` and
 re-serves its lanes on the base layout; ``health()`` snapshots it all.
 Timestamps come from an injectable clock.
 
-Not ported yet (each raises ``NotImplementedError`` naming its step of
-ROADMAP.md queue 1): megatick windows (``megatick > 1``, step 5c) and mesh
-serving (``mesh=``, ``device_budget=``, step 8).
+Megatick windows (``megatick=T > 1``, DESIGN.md §11.1), as in ``repro``:
+when a graph's queue is empty, a session runs up to T dense levels as one
+window on the device — the level, per-lane reach and ``done`` flags, the
+(T, kappa) history of new counts and, under a live policy, Eq. (6) — and
+reads the history once after it.  On CUDA the window is a captured graph
+of one level under a conditional node on a device flag, launched T times
+(:class:`repro_torch.core.window.LevelWindow`); on the CPU the same level
+body runs in a host loop.
+
+Not ported yet (raises ``NotImplementedError`` naming its step of
+ROADMAP.md queue 1): mesh serving (``mesh=``, ``device_budget=``, step 8).
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 import time
+import weakref
 from collections import OrderedDict, deque
 from concurrent.futures import (
     FIRST_COMPLETED, ThreadPoolExecutor, wait as _futures_wait)
@@ -88,6 +97,7 @@ from repro_torch.core.blest import (
 from repro_torch.core.bvss import Bvss, BvssConfig, build_bvss
 from repro_torch.core.graph import Graph
 from repro_torch.core.msbfs import frontier_planes
+from repro_torch.core.window import LevelWindow, stamp
 from repro_torch.kernels import ops, words
 from repro_torch.kernels import pull_mma_ms_packed as mma_mod
 from repro_torch.serve import lifecycle as lifecycle_mod
@@ -852,6 +862,17 @@ class _LaneRunner:
         self._rows_flat = bd.row_ids.reshape(-1)  # index_reduce_ (byteplane)
         self._lanes = torch.arange(kappa, device=bd.device)
         self._init_state: LaneState | None = None
+        # megatick residency (DESIGN.md §11.1): per-set VSS counts for the
+        # on-device |Q|, the bucket-guard threshold (the smallest |Q| whose
+        # padded bucket reaches the full sweep), and the windows per
+        # (T, policy, eta), each bound to one session's level stamps
+        self._set_counts = torch.from_numpy(
+            np.diff(bd.real_ptrs).astype(np.int32)).to(bd.device)
+        if bucket_size(1) >= bd.num_vss_pad:
+            self._dense_guard = 0
+        else:
+            self._dense_guard = (1 << (bd.num_vss_pad - 1).bit_length()) // 2 + 1
+        self._windows: dict[tuple[int, bool, float], _LaneWindow] = {}
 
     # ---- state ------------------------------------------------------------
     def init_state(self) -> LaneState:
@@ -913,20 +934,34 @@ class _LaneRunner:
         rows = bd.rows32.view(-1, bd.tau).index_select(0, qids).reshape(-1)
         return ops.scatter_or(v, rows, marks.reshape(-1, self.kw))
 
+    def _diff_bits(self, v, v_next):
+        """The lanes' new bits: (diff rows, (n_ext, kappa) bool)."""
+        if self.substrate == "packed":
+            diff = v_next & ~v
+            return diff, words.unpack_words(diff, torch.bool)
+        diff = v_next & (1 - v)
+        return diff, diff.bool()
+
     def _finish_level(self, state: LaneState, v_next, ell: int):
         """Shared tail of both sweeps: diff, level stamps, frontier tiles.
         Returns (state', new_per_lane (kappa,) int64)."""
-        v = state.v
-        if self.substrate == "packed":
-            diff = v_next & ~v
-            bits = words.unpack_words(diff, torch.bool)
-        else:
-            diff = v_next & (1 - v)
-            bits = diff.bool()
-        levels = self._owned(state.levels).masked_fill_(bits, ell)
+        diff, bits = self._diff_bits(state.v, v_next)
+        levels = stamp(self._owned(state.levels), bits, ell)
         return (LaneState(v=v_next, f=frontier_planes(self.bd, diff),
                           levels=levels),
                 bits.sum(dim=0))
+
+    def _window_level(self, w: "_LaneWindow") -> torch.Tensor:
+        """One dense level in place on a window's buffers, stamped with its
+        device ``ell``; returns the per-lane new counts, (kappa,) int32."""
+        bd = self.bd
+        v_next = self._pull_scatter(w.v, w.f)
+        diff, bits = self._diff_bits(w.v, v_next)
+        stamp(w.levels, bits, w.window.ell)
+        w.v.copy_(v_next)
+        w.f[: bd.num_sets].copy_(
+            diff[: bd.n_pad].view(bd.num_sets, bd.sigma, -1))
+        return bits.sum(dim=0, dtype=torch.int32)
 
     def level(self, state: LaneState, ell: int):
         """Advance every lane one dense level; returns (state', new_lane)."""
@@ -962,11 +997,50 @@ class _LaneRunner:
         padded[: qids.size] = qids
         return padded
 
+    # ---- megatick: up to T dense levels per window (§11.1) ---------------
+    def megatick(self, state: LaneState, reach: np.ndarray, ell0: int,
+                 active, admitted_at, eta: float, *, ticks: int,
+                 policy_on: bool):
+        """Run up to ``ticks`` consecutive dense levels as one window;
+        returns ``(state', hist)`` where ``hist`` is the (ticks, kappa)
+        int32 host array of per-level new-vertex counts with unexecuted
+        rows left at -1 (the executed tick count is the number of rows
+        >= 0), read from the device once.
+
+        The window stops before T when every active lane is done (frontier
+        empty, or the diameter bound) or, under an active policy, when
+        Eq. (6) picks a queued level, which the host then runs.  A lane
+        that finishes inside the window parks there: its frontier is
+        empty, so its stamps, reach and far are frozen.  ``active`` /
+        ``admitted_at`` are (kappa,) host arrays or device tensors (the
+        session's ``meta_dev``); ``reach`` is read only under a policy.
+
+        The window is built (and, on CUDA, captured) at the first call for
+        its key and for each new ``levels`` tensor (a new session); the
+        visited and frontier words are copied into its own buffers when
+        ``state`` does not hold them already (after a reseed or a host
+        level), so a window never needs a recapture within a session."""
+        key = (int(ticks), bool(policy_on), float(eta))
+        levels = self._owned(state.levels)
+        w = self._windows.get(key)
+        if w is None or w.levels is not levels:
+            if w is not None:
+                w.close()
+            w = self._windows[key] = _LaneWindow(self, levels, *key)
+        return w.run(state, reach, ell0, active, admitted_at)
+
+    def close_windows(self) -> None:
+        """Frees every window's buffers and graph (with its session)."""
+        for w in self._windows.values():
+            w.close()
+        self._windows.clear()
+
     # ---- watched targets and extraction (§12.3, §11.3) --------------------
-    def watch_levels(self, levels, ids_dev) -> np.ndarray:
-        """Level stamps of one watched vertex per lane: (kappa,) on host.
-        ``ids_dev`` is the clamped (>= 0) per-lane vertex id column."""
-        return levels[ids_dev, self._lanes].cpu().numpy()
+    def watch_gather(self, levels, ids_dev) -> torch.Tensor:
+        """Level stamps of one watched vertex per lane: (kappa,) on the
+        device.  ``ids_dev`` is the clamped (>= 0) per-lane vertex id
+        column."""
+        return levels[ids_dev, self._lanes]
 
     def gather_level_cols(self, levels, cols: list[int], admitted,
                           perm: torch.Tensor) -> np.ndarray:
@@ -1030,6 +1104,103 @@ class _LaneRunner:
             levels[torch.from_numpy(src).to(dev),
                    torch.from_numpy(lanes).to(dev)] = int(ell)
         return LaneState(v=v, f=f, levels=levels)
+
+
+class _LaneWindow:
+    """One megatick window of a lane runner (DESIGN.md §11.1): its
+    loop-carried buffers, its control tensors and the level window over
+    them, bound to one session's ``levels`` tensor.
+
+    ``repro``'s ``_megatick`` loop, term for term: the condition is
+    ``tick < T & any(active & ~done)`` (and Eq. (6) under a policy, with
+    |Q| from the union frontier through the per-set VSS counts and the
+    unvisited sum accumulated in float32); the body advances ``ell``, runs
+    the dense level, folds ``(new == 0) | (ell - admitted_at >= n_ext)``
+    into ``done`` for the active lanes, adds the new counts to ``reach``
+    and writes them to row ``tick`` of ``hist``."""
+
+    def __init__(self, runner: _LaneRunner, levels: torch.Tensor, ticks: int,
+                 policy_on: bool, eta: float):
+        dev, kappa = runner.bd.device, runner.kappa
+        init = runner.init_state()
+        # the runner keeps its windows: a weak reference back, so that a
+        # dropped runner frees them (and their graphs) at once
+        self._runner = weakref.ref(runner)
+        self.levels = levels
+        self.ticks, self.policy_on = ticks, policy_on
+        self.v = torch.empty_like(init.v)
+        self.f = torch.zeros_like(init.f)  # the sentinel set stays zero
+        self.reach = torch.zeros(kappa, dtype=torch.int32, device=dev)
+        self.active = torch.zeros(kappa, dtype=torch.bool, device=dev)
+        self.admitted = torch.zeros(kappa, dtype=torch.int32, device=dev)
+        self.done = torch.zeros(kappa, dtype=torch.bool, device=dev)
+        self.hist = torch.full((ticks, kappa), -1, dtype=torch.int32,
+                               device=dev)
+        self.tick = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.eta = torch.full((), eta, dtype=torch.float32, device=dev)
+        self.window = LevelWindow(self._body, self._start, device=dev)
+        self._ell0 = 0
+        self._copy_in: list = []  # (buffer, device tensor) for _start
+
+    def _cond(self) -> None:
+        go = (self.tick[0] < self.ticks) & (self.active & ~self.done).any()
+        if self.policy_on:
+            r = self._runner()
+            bd = r.bd
+            af = (self.f.reshape(self.f.shape[0], -1) != 0).any(dim=1)
+            q_len = torch.where(af[: bd.num_sets], r._set_counts, 0).sum()
+            unvisited = torch.where(
+                self.active, (bd.n - self.reach).to(torch.float32), 0.0).sum()
+            dense = unvisited < self.eta * q_len.to(torch.float32)
+            go = go & (dense | (q_len >= r._dense_guard))  # bucket guard
+        self.window.go.copy_(go)
+
+    def _start(self) -> None:
+        for buf, src in self._copy_in:
+            buf.copy_(src)
+        self._copy_in = []
+        self.window.ell.fill_(self._ell0)
+        self.tick.zero_()
+        self.done.zero_()
+        self.hist.fill_(-1)
+        self._cond()
+
+    def _body(self) -> None:
+        w = self.window
+        w.ell.add_(1)
+        r = self._runner()
+        new = r._window_level(self)
+        # new counts are monotone-absorbing at zero (an empty lane
+        # frontier stays empty), so |= is exact
+        self.done |= self.active & (
+            (new == 0) | (w.ell - self.admitted >= r.bd.n_ext))
+        self.reach += new
+        self.hist.index_copy_(0, self.tick, new[None])
+        self.tick += 1
+        self._cond()
+
+    def run(self, state: LaneState, reach, ell0: int, active, admitted_at):
+        w = self.window
+        self._ell0 = int(ell0)
+        if state.v is not self.v:
+            self._copy_in += [(self.v, state.v), (self.f, state.f)]
+        pairs = [(self.active, active), (self.admitted, admitted_at)]
+        if self.policy_on:
+            pairs.append((self.reach, np.asarray(reach, np.int32)))
+        for buf, x in pairs:
+            if isinstance(x, torch.Tensor):
+                self._copy_in.append((buf, x))
+            else:
+                w.upload(buf, np.asarray(x).astype(
+                    np.bool_ if buf.dtype == torch.bool else np.int32))
+        w.capture()
+        w.run(self.ticks)
+        hist = self.hist.cpu().numpy()  # the window's one read
+        w.credit(int((hist[:, 0] >= 0).sum()))
+        return LaneState(v=self.v, f=self.f, levels=self.levels), hist
+
+    def close(self) -> None:
+        self.window.close()
 
 
 # ---------------------------------------------------------------------------
@@ -1117,6 +1288,14 @@ class _GraphSession:
         self.perm_dev = None  # art.perm on the device, at first extraction
         self.state = self.runner.init_state()
         self.ell = 0
+        # device copies of the lane metadata the megatick window reads;
+        # rebuilt only when the lane set changes (admission / extraction)
+        self.meta_dev = None
+        # queued-streak guard: after a window exits on a queued verdict,
+        # stay on the per-level path until the policy picks dense again —
+        # otherwise a queued-dominant traversal would pay a no-op window
+        # plus a history read on every single level
+        self.prefer_host = False
         engine.stats["batches"] += 1
 
     @property
@@ -1161,6 +1340,7 @@ class _GraphSession:
             self.wl[i] = None
             self.accs[i] = None
             self.watch_ids[i] = -1
+        self.meta_dev = None
         self.watch_dev = None
         clear = np.zeros(kappa, bool)
         clear[stale] = True
@@ -1176,6 +1356,7 @@ class _GraphSession:
         # ---- admission: refill free lanes from the queue -----------------
         free = [i for i in range(kappa) if lanes[i] is None]
         if free and queue:
+            self.meta_dev = None
             self.watch_dev = None
             clear = np.zeros(kappa, bool)
             new_src = np.full(kappa, -1, np.int32)
@@ -1211,22 +1392,69 @@ class _GraphSession:
         if all(q is None for q in lanes):
             return
         active_arr = np.fromiter((q is not None for q in lanes), bool, kappa)
-        # ---- mode decision over the aggregate frontier (§10.2) -----------
-        # counts first, ids later: the decision needs only |Q|; the id list
-        # is expanded on the queued branch alone
-        mode = "dense"
-        active_mask = None
-        if self.policy_on:
+        # ---- megatick window: up to T dense levels on the device (§11.1) --
+        # windows run when this graph's queue is drained; under backlog the
+        # per-level path keeps admission immediate
+        if eng.megatick > 1 and not queue and not self.prefer_host:
+            if self.meta_dev is None:
+                dev = art.bd.device
+                self.meta_dev = (torch.from_numpy(active_arr).to(dev),
+                                 torch.from_numpy(self.admitted_at).to(dev))
+            self.state, hist = runner.megatick(
+                self.state, self.reach_host.astype(np.int32), self.ell,
+                self.meta_dev[0], self.meta_dev[1], eng.eta,
+                ticks=eng.megatick, policy_on=self.policy_on)
+            eng.stats["host_syncs"] += 1
+            # unexecuted rows stay -1: the one read above carries both the
+            # executed tick count and every level's counts
+            ticks = int((hist[:, 0] >= 0).sum())
+            if ticks:
+                eng.stats["megaticks"] += 1
+                eng.stats["levels"] += ticks
+                eng.stats["levels_dense"] += ticks
+                w = hist[:ticks].astype(np.int64)
+                ells = self.ell + 1 + np.arange(ticks, dtype=np.int64)
+                self.reach_host += w.sum(axis=0)
+                self.far64 += ((ells[:, None] - self.admitted_at[None, :])
+                               * w).sum(axis=0)
+                self.ell += ticks
+                self._run_hooks(w, ells)
+                tl = self._watch_tick()
+                # new counts are monotone-absorbing at zero, so the last
+                # row flags every lane that finished anywhere in the window
+                if self._finish_tick(hist[ticks - 1], tl):
+                    self.meta_dev = None
+                    return  # freed lanes: admit before the next window
+                if ticks == eng.megatick:
+                    return  # window exhausted with every lane active
+            # the window stopped short of T with no lane finished: the
+            # on-device Eq. (6) verdict was queued — run that one level
+            # on the host with the §10 bucketed machinery, and stay on the
+            # per-level path while the verdict keeps being queued
+            mode = "queued"
+            self.prefer_host = True
             active_mask = runner.active_set_mask(self.state.f)
             eng.stats["host_syncs"] += 1
-            q_len = runner.queue_len(active_mask)
-            unvisited = int(np.where(active_arr,
-                                     art.graph.n - self.reach_host, 0).sum())
-            mode = switching_mod.decide_mode(unvisited, q_len, eng.eta)
-            # bucket guard: a padded queue as large as the full VSS sweep
-            # can only lose to dense
-            if bucket_size(q_len) >= art.bd.num_vss_pad:
-                mode = "dense"
+        else:
+            # ---- mode decision over the aggregate frontier (§10.2) -------
+            # counts first, ids later: the decision needs only |Q|; the id
+            # list is expanded on the queued branch alone
+            mode = "dense"
+            active_mask = None
+            if self.policy_on:
+                active_mask = runner.active_set_mask(self.state.f)
+                eng.stats["host_syncs"] += 1
+                q_len = runner.queue_len(active_mask)
+                unvisited = int(np.where(active_arr,
+                                         art.graph.n - self.reach_host,
+                                         0).sum())
+                mode = switching_mod.decide_mode(unvisited, q_len, eng.eta)
+                # bucket guard: a padded queue as large as the full VSS
+                # sweep can only lose to dense
+                if bucket_size(q_len) >= art.bd.num_vss_pad:
+                    mode = "dense"
+            if mode == "dense":
+                self.prefer_host = False  # dense again: windows may resume
         # ---- one level for every lane ------------------------------------
         self.ell += 1
         if mode == "queued":
@@ -1238,32 +1466,34 @@ class _GraphSession:
             self.state, new_lane = runner.level(self.state, self.ell)
             eng.stats["levels_dense"] += 1
         eng.stats["levels"] += 1
-        nl = new_lane.cpu().numpy()
-        eng.stats["host_syncs"] += 1
+        nl, tl = self._read_level(new_lane)
         self.reach_host += nl
         self.far64 += (self.ell - self.admitted_at).astype(np.int64) * nl
-        self._run_hooks(nl)
-        tl = self._watch_tick()
-        self._finish_tick(nl, tl)
+        self._run_hooks(nl[None, :].astype(np.int64),
+                        np.array([self.ell], dtype=np.int64))
+        if self._finish_tick(nl, tl):
+            self.meta_dev = None
 
     # ---- per-level workload hooks (§12.3) ---------------------------------
-    def _run_hooks(self, counts: np.ndarray) -> None:
-        """Call overridden ``Workload.accumulate`` hooks for this level's
-        (kappa,) new-vertex counts.  Lanes of hook-less workloads (all
-        built-ins) never enter the loop."""
+    def _run_hooks(self, counts: np.ndarray, ells: np.ndarray) -> None:
+        """Call overridden ``Workload.accumulate`` hooks for the executed
+        levels: ``counts`` is (T, kappa) new-vertex counts at global levels
+        ``ells``.  Lanes of hook-less workloads (all built-ins) never enter
+        the loop."""
         if not any(a is not None for a in self.accs):
             return
         for i in range(self.engine.kappa):
             acc = self.accs[i]
             if acc is None or self.lanes[i] is None:
                 continue
-            self.wl[i].accumulate(acc, self.ell - int(self.admitted_at[i]),
-                                  int(counts[i]))
+            wl, a0 = self.wl[i], int(self.admitted_at[i])
+            for t in range(counts.shape[0]):
+                wl.accumulate(acc, int(ells[t]) - a0, int(counts[t, i]))
 
     # ---- watched targets (§12.3) ------------------------------------------
-    def _watch_tick(self) -> np.ndarray | None:
-        """Watched targets' level stamps after a level: one (kappa,)
-        gather, skipped unless a watcher lane is in flight."""
+    def _watch_gather(self) -> torch.Tensor | None:
+        """Watched targets' level stamps, (kappa,) on the device; None
+        unless a watcher lane is in flight."""
         if not ((self.watch_ids >= 0)
                 & np.fromiter((q is not None for q in self.lanes), bool,
                               self.engine.kappa)).any():
@@ -1271,15 +1501,37 @@ class _GraphSession:
         if self.watch_dev is None:
             self.watch_dev = torch.from_numpy(
                 np.maximum(self.watch_ids, 0)).to(self.art.bd.device)
-        self.tl = self.runner.watch_levels(self.state.levels, self.watch_dev)
+        return self.runner.watch_gather(self.state.levels, self.watch_dev)
+
+    def _watch_tick(self) -> np.ndarray | None:
+        """Watched targets' level stamps after a window: one (kappa,)
+        gather and read, skipped unless a watcher lane is in flight."""
+        tl = self._watch_gather()
+        if tl is None:
+            return None
+        self.tl = tl.cpu().numpy()
         self.engine.stats["host_syncs"] += 1
         return self.tl
 
+    def _read_level(self, new_lane: torch.Tensor):
+        """A level's (kappa,) new counts and, while a watcher lane is in
+        flight, the watched targets' stamps, in one device->host read
+        (``repro`` reads the two apart): returns (counts, stamps or None)."""
+        tl = self._watch_gather()
+        if tl is None:
+            nl = new_lane.cpu().numpy()
+        else:
+            nl, self.tl = torch.stack((new_lane.to(torch.int64),
+                                       tl.to(torch.int64))).cpu().numpy()
+            tl = self.tl
+        self.engine.stats["host_syncs"] += 1
+        return nl, tl
+
     # ---- per-lane early exit ----------------------------------------------
-    def _finish_tick(self, nl: np.ndarray, tl: np.ndarray | None) -> None:
-        """Extract and free every finished lane after a level: frontier
-        empty, diameter bound hit, or — distance lanes — the watched
-        target's bit lit (§12.3)."""
+    def _finish_tick(self, nl: np.ndarray, tl: np.ndarray | None) -> bool:
+        """Extract and free every finished lane after a level (or megatick
+        window): frontier empty, diameter bound hit, or — distance lanes —
+        the watched target's bit lit (§12.3); True iff any lane freed."""
         eng, art = self.engine, self.art
         done = [i for i in range(eng.kappa) if self.lanes[i] is not None
                 and (nl[i] == 0
@@ -1287,7 +1539,7 @@ class _GraphSession:
                      or (tl is not None and self.watch_ids[i] >= 0
                          and tl[i] != UNREACHED))]
         if not done:
-            return
+            return False
         self._extract(done)
         for i in done:
             self.lanes[i] = None
@@ -1305,6 +1557,7 @@ class _GraphSession:
             self.state = self.runner.reseed(
                 self.state, clear, np.full(eng.kappa, -1, np.int32),
                 self.ell)
+        return True
 
     def _extract(self, done: list[int]) -> None:
         eng, art = self.engine, self.art
@@ -1410,9 +1663,11 @@ class BfsEngine:
 
     ``device`` (None: the CUDA device; the constructor raises when there is
     none) is where every artifact and lane lives; ``device="cpu"`` runs the
-    plain PyTorch versions of the kernels.  ``megatick > 1`` (ROADMAP.md
-    queue 1 step 5c) and ``mesh=`` / ``device_budget=`` (step 8) are not
-    ported yet and raise ``NotImplementedError``.
+    plain PyTorch versions of the kernels.  ``megatick=T > 1`` runs up to
+    T dense levels a tick as one device window when a graph's queue is
+    empty (DESIGN.md §11.1; the module docstring).  ``mesh=`` /
+    ``device_budget=`` (ROADMAP.md queue 1 step 8) are not ported yet and
+    raise ``NotImplementedError``.
     """
 
     def __init__(self, *, kappa: int = 32, cache_bytes: int | None = None,
@@ -1454,10 +1709,6 @@ class BfsEngine:
             raise ValueError(f"eta must be >= 0, got {eta}")
         if megatick < 1:
             raise ValueError(f"megatick must be >= 1, got {megatick}")
-        if megatick > 1:
-            raise NotImplementedError(
-                f"megatick={megatick}: megatick windows are not ported yet "
-                "(ROADMAP.md queue 1 step 5c); use megatick=1")
         if scheduler not in SCHEDULERS:
             raise ValueError(
                 f"scheduler must be one of {SCHEDULERS}, got {scheduler!r}")
@@ -1564,7 +1815,8 @@ class BfsEngine:
         self.stats = {
             "queries": 0, "batches": 0, "levels": 0,
             "admissions_midflight": 0,
-            "levels_dense": 0, "levels_queued": 0, "host_syncs": 0,
+            "levels_dense": 0, "levels_queued": 0, "megaticks": 0,
+            "host_syncs": 0,
             "ticks": 0, "session_switches": 0, "max_live_sessions": 0,
             "builds": 0, "build_failures": 0,
             "rejected": 0, "deferred": 0,
@@ -1858,6 +2110,7 @@ class BfsEngine:
             self._quantum_left = self._weight(self._rotation[0])
         in_flight = [q for q in sess.lanes if q is not None]
         lay = self._resolve_layout(sess.art)
+        sess.runner.close_windows()
         self._drop_runner(name)
         self._quarantine_pair(name, lay, f"session tick raised: {exc!r}")
         queue = self._queues.get(name)
@@ -2061,6 +2314,7 @@ class BfsEngine:
 
     def _close_session(self, name: str) -> None:
         sess = self._sessions.pop(name)
+        sess.runner.close_windows()  # their graphs hold the session's state
         was_head = self._rotation and self._rotation[0] == name
         self._rotation.remove(name)
         if was_head and self._rotation:

@@ -8,8 +8,8 @@ per-ticket results and level counts on one request stream with switching
 off and on; and scripted request lifecycles under an injected clock
 (reject, defer, deadlines, cancellation, tenant weights, build retries,
 MMA quarantine), whose ticket states, timestamps and results must be
-equal.  Against the oracle: the megatick-1 cells of
-``tests/workload_matrix.py`` with the port's four kinds.  Levels, words
+equal.  Against the oracle: every cell of ``tests/workload_matrix.py``
+(layout x switching x megatick) with the port's four kinds.  Levels, words
 and counts are integers: equality is exact (tolerance 0).
 """
 from __future__ import annotations
@@ -367,17 +367,17 @@ def test_scripted_lifecycle_matches_reference(scenario, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the workload matrix: megatick-1 cells, the port's kinds, vs the oracle
+# the workload matrix: every cell, the port's kinds, vs the oracle
 # ---------------------------------------------------------------------------
 
 
-PORT_CELLS = [c for c in MATRIX if c[3] == 1]
+PORT_CELLS = list(MATRIX)
 
 
 @pytest.mark.parametrize("layout,switching,eta,megatick", PORT_CELLS)
 def test_workload_matrix_cell(layout, switching, eta, megatick):
-    """Every megatick-1 cell of tests/workload_matrix.py (layout x
-    switching) on the port's engine: bfs / closeness / distance / reach
+    """Every cell of tests/workload_matrix.py (layout x switching x
+    megatick) on the port's engine: bfs / closeness / distance / reach
     queries interleaved over the matrix graphs, each result through
     verify_result against ref_bfs; the forced layout resolved."""
     eng = t_engine.BfsEngine(layout=layout, switching=switching, eta=eta,
@@ -440,8 +440,7 @@ def test_engine_without_device_needs_cuda(monkeypatch):
         t_engine.BfsEngine()
 
 
-@pytest.mark.parametrize("kw,step", [({"megatick": 2}, "step 5c"),
-                                     ({"mesh": object()}, "step 8"),
+@pytest.mark.parametrize("kw,step", [({"mesh": object()}, "step 8"),
                                      ({"device_budget": 1 << 20}, "step 8")])
 def test_unported_options_raise(kw, step):
     with pytest.raises(NotImplementedError, match=step):
