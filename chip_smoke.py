@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--kron-scale 22] [--road-scale 20]
+                          [--analytics-scale 17]
 
 Run from the root of a checkout; it needs one CUDA device, and nvcc to build
 the kernels.  Phases, each fatal (exit code 1, no result line):
@@ -36,7 +37,12 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    count that is no multiple of the VSSs a block takes (the MMA form also
    on random int8 planes), and the queued pull over buckets of VSS ids
    made of padding alone, full, random, of one id, and of repeated ids in
-   no order (on mask bytes with bits above sigma).
+   no order (on mask bytes with bits above sigma).  The analytics kernels
+   A-C (``kernels/analytics.py``) bit for bit at n in {1, 31, 32, 33, 211,
+   1024} on the rows of a random graph with self-loops, all-zero and
+   all-one rows, each fresh and as a view one element in; kappa in {1, 8,
+   32}; candidate sets random, empty and full, priorities random or all
+   equal; pairs in runs, duplicated and naming the zero pad row.
 3. The main path at full size: kron (RMAT) scale 22, edge factor 16,
    through ``Blest.preprocess(g, reorder="natural", probe_switching=True)``
    and ``Blest.bfs`` from 4 seeded sources under all 8 driver combinations
@@ -103,14 +109,31 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    fewer host syncs than levels; (e) every family at scale 10 under each
    layout and switching mode, and (h) the same at megatick 64.  Every
    ticket of (a)-(d), (f), (g) must equal its expected values, those from
-   the oracle's sources the oracle too, and every ticket of (e) and (h)
-   the oracle; every engine at megatick 64 (of (h), those with switching
+   the oracle's sources the oracle too, and every ticket of (e) and (h),
+   which serve all seven kinds (bfs, closeness, distance, reach, cc, mis,
+   tpv), ``verify_result(..., graph=g)``: the oracle's levels and the
+   graph's dense references; every engine at megatick 64 (of (h), those with switching
    off) must have run windows.  Every window runs (its uploads, start and
    launches) under ``torch.cuda.set_sync_debug_mode("error")``, so a
    synchronising operation there fails the run; its one read is outside.
    Every serve kernel and ``pull_ms`` / ``scatter_or`` must have launched.
    Then kernels 8-10 at kron-22's shapes: equality with their plain
    versions, times, bounds, and the unfused dense levels they replace.
+7. The analytics kinds on kron (RMAT) scale 17 and delaunay (a
+   triangulated grid, symmetric) scale 17, whose packed adjacency is
+   2 GiB on the card; launch counts zeroed just before each graph's path
+   and read just after: ``connected_components_packed`` (kappa 32) equal
+   to union-find, ``mis_packed`` (seed 0) equal to ``mis_ref`` and
+   independent and maximal, ``triangles_per_vertex`` summing to 3 x
+   ``triangle_count`` and equal, at 64 seeded vertices (the 8 of highest
+   degree among them), to a count on the symmetrized CSR alone; then one
+   ``BfsEngine`` (packed, kappa 32, switching auto, natural order) at
+   megatick 1 and one at 64 on 16 seeded sources x all seven kinds, tpv
+   tickets against the CSR count, the others through ``verify_result(..., graph=g)``.  Each
+   of kernels A-C must have launched.  Then A-C at kron's shapes:
+   equality with their plain versions, times, bounds (C also over one
+   tpv query at the highest-degree vertex, also as a replayed CUDA
+   graph).
 
 Prints, before the last line: the card's name and power limit (as
 nvidia-smi gives them), one JSON line ``{"kernels": [...]}`` (launches on the
@@ -131,7 +154,12 @@ JSON line ``{"serve": [...]}`` (per engine: graph, layout, switching,
 kappa, megatick, windows that ran a level (``megaticks``), host syncs and
 syncs per level, the largest window graph's memory pool, tickets, build
 and wall seconds, tickets/s, lane-edges/s, dense and queued levels, ms
-per tick, p50 and p99 ticket latency).  The last line is
+per tick, p50 and p99 ticket latency) and one JSON line
+``{"analytics": [...]}`` (per phase-7 graph: n, m, the adjacency's bytes,
+seconds of union-find, cc_packed with its batches and levels, mis_ref,
+mis_packed with its rounds, triangles_per_vertex and triangle_count; per
+engine wall, tickets/s, host syncs per level, and each kind's graph-state
+build in seconds, apart from ``serving_s``).  The last line is
 ``{"ok": true, "device": {...}}``.
 
 Edges/s is the number of directed edges (u, v) of the graph whose source u
@@ -183,6 +211,11 @@ MS_KERNELS = ("pull_ms", "pull_ms_packed", "scatter_or", "pull_mma_ms_packed")
 SERVE_PATH_KERNELS = ("pull_ms", "scatter_or", "pull_scatter_ms_packed",
                       "pull_ms_packed_queued", "pull_scatter_mma_ms_packed")
 SERVE_KINDS = ("bfs", "closeness", "distance", "reach")
+ALL_KINDS = SERVE_KINDS + ("cc", "mis", "tpv")
+ANALYTICS_KERNELS = ("lane_any", "luby_local_min", "and_popc_pairs")
+ANALYTICS_NS = (1, 31, 32, 33, 211, 1024)  # ragged word tails
+ANALYTICS_SOURCES = 16       # x 7 kinds = 112 tickets on 32 lanes
+TPV_CHECKS = 64              # vertices held against the CSR count
 KRON_SERVE_SOURCES = 128     # x 4 kinds = 512 tickets on 256 lanes
 ROAD_SERVE_SOURCES = 16      # x 4 kinds = 64 tickets on 32 lanes
 
@@ -213,13 +246,14 @@ class Smoke:
         import numpy as np
         import torch
 
-        from repro_torch.core import blest, msbfs, msbfs_packed, ref_bfs, window
+        from repro_torch.core import (blest, components, mis, msbfs,
+                                      msbfs_packed, ref_bfs, triangles, window)
         from repro_torch.core.bvss import BvssConfig, build_bvss
-        from repro_torch.core.graph import Graph
+        from repro_torch.core.graph import Graph, from_edges
         from repro_torch.core.pipeline import Blest
         from repro_torch.data import graphs
-        from repro_torch.kernels import (frontier_sweep, ops, pull_ms,
-                                         pull_ms_packed, pull_ss,
+        from repro_torch.kernels import (analytics, frontier_sweep, ops,
+                                         pull_ms, pull_ms_packed, pull_ss,
                                          ref as kref, scatter_or, words)
         from repro_torch.kernels import pull_mma_ms_packed as mma
         from repro_torch.kernels import pull_ms_packed_queued as queued
@@ -235,12 +269,15 @@ class Smoke:
         self.graphs, self.ops, self.words = graphs, ops, words
         self.bfs_engine, self.workloads = bfs_engine, workloads
         self.window = window
+        self.components, self.mis, self.triangles = components, mis, triangles
+        self.from_edges = from_edges
         self.windows_run = 0      # LevelWindow.run calls, all phases
         self.window_pools: list[int] = []  # each capture's pool bytes
         self.instrument_windows()
         csrc = "src/repro_torch/kernels/csrc/blest_ss.cu"
         ms_src = "src/repro_torch/kernels/csrc/blest_ms.cu"
         serve_src = "src/repro_torch/kernels/csrc/blest_serve.cu"
+        an_src = "src/repro_torch/kernels/csrc/blest_analytics.cu"
         self.kernels = {
             "pull_ss": dict(
                 fn=pull_ss.pull_ss, plain=kref.pull_ss_ref, source=csrc,
@@ -279,6 +316,19 @@ class Smoke:
             "pull_scatter_mma_ms_packed": dict(
                 fn=mma.pull_scatter_mma_ms_packed, source=serve_src,
                 replaces="src/repro/kernels/pull_mma_ms_packed.py:247"),
+            # kernels A-C: no Pallas kernel, the reference's jitted
+            # AND/popcount functions they stand for
+            "lane_any": dict(
+                fn=analytics.lane_any, plain=analytics.lane_any_ref,
+                source=an_src, replaces="src/repro/core/components.py:79"),
+            "luby_local_min": dict(
+                fn=analytics.luby_local_min,
+                plain=analytics.luby_local_min_ref, source=an_src,
+                replaces="src/repro/core/mis.py:52"),
+            "and_popc_pairs": dict(
+                fn=analytics.and_popc_pairs,
+                plain=analytics.and_popc_pairs_ref, source=an_src,
+                replaces="src/repro/core/triangles.py:75"),
         }
         # the multi-source plain versions, on the kernels' arguments
         self.kernels["pull_ms"]["plain"] = lambda m, f, v2r, sigma=8: \
@@ -304,6 +354,10 @@ class Smoke:
         self.bfs_rows: list[dict] = []
         self.ms_rows: list[dict] = []
         self.serve_rows: list[dict] = []
+        self.analytics_rows: list[dict] = []
+        self.state_builds: list[tuple] = []  # (graph, kind, seconds)
+        self.instrument_state_builds()
+        self.family_graphs: dict = {}  # scale-10 graphs, one object each
         self.road_kernels: dict = {}  # name -> road-shape time and bound
         self.oracle: dict = {}  # (graph label, source) -> oracle levels
         self.graphs_n: dict = {}  # graph label -> n
@@ -337,6 +391,25 @@ class Smoke:
                 smoke.window_pools.append(w.pool_bytes)
 
         cls.run, cls.capture = checked_run, recorded_capture
+
+    def instrument_state_builds(self):
+        """Each engine's graph-state build (``Workload.graph_state``, run
+        on the host thread inside extraction) is timed apart, as (graph,
+        kind, seconds), so that it is not read as serving time."""
+        cls, smoke = self.bfs_engine.BfsEngine, self
+        build = cls._workload_graph_state
+
+        def timed(eng, name, wl, graph):
+            if wl.kind in eng._wl_state.get(name, {}):
+                return build(eng, name, wl, graph)
+            t0 = time.perf_counter()
+            out = build(eng, name, wl, graph)
+            smoke.sync()
+            smoke.state_builds.append((name, wl.kind,
+                                       time.perf_counter() - t0))
+            return out
+
+        cls._workload_graph_state = timed
 
     def sync(self):
         if self.dev.type == "cuda":
@@ -1165,10 +1238,7 @@ class Smoke:
             row["graph_ms"] = self.time_graph_ms(lambda: k["fn"](*args))
         row["plain_ms"] = self.time_ms(lambda: self.chunked(name, args, n),
                                        iters=2, warmup=1)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / peak * 1e3
-        row.update(bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        row.update(self.bound(nbytes, nops, peak))
         log(f"{name}: {row} ({nbytes} bytes, {nops} operations) at {what}")
         return row
 
@@ -1374,10 +1444,11 @@ class Smoke:
                      "byteplane MS-BFS")
 
     # -------------------------------------------- phase 6: serve engine --
-    def serve_specs(self, g, oracle_srcs, n_sources, seed):
+    def serve_specs(self, g, oracle_srcs, n_sources, seed,
+                    kinds=SERVE_KINDS):
         """A ticket stream: ``n_sources`` seeded sources (the oracle's
-        first), each once as bfs, closeness, distance (seeded target) and
-        reach, interleaved."""
+        first), each once as each of ``kinds`` (bfs, closeness, distance
+        with a seeded target, reach by default), interleaved."""
         np = self.np
         rng = np.random.default_rng(seed)
         pool = [int(s) for s in oracle_srcs]
@@ -1386,7 +1457,7 @@ class Smoke:
         pool = (pool + rest)[:n_sources]
         return [(kind, src, int(rng.integers(g.n))
                  if kind == "distance" else None)
-                for src in pool for kind in SERVE_KINDS]
+                for src in pool for kind in kinds]
 
     def serve_expect(self, b, g, specs):
         """What each ticket must return, from ``Blest.msbfs`` over the
@@ -1525,15 +1596,19 @@ class Smoke:
         return row
 
     def serve_families(self, megatick: int = 1):
-        """Every family at scale 10 under each layout x switching: every
-        ticket through verify_result against ref_bfs.  At ``megatick`` > 1
-        every engine with switching off must have run windows."""
+        """Every family at scale 10 under each layout x switching, all seven
+        kinds: every ticket through verify_result against ref_bfs and, for
+        cc / mis / tpv, the graph's dense references (memoized per graph
+        object, so each family's graph is made once for both megaticks).
+        At ``megatick`` > 1 every engine with switching off must have run
+        windows."""
         t0 = time.perf_counter()
         tickets = windows = 0
         for family in self.graphs.FAMILIES:
-            g = self.graphs.make(family, 10)
+            g = self.family_graphs.setdefault(
+                family, self.graphs.make(family, 10))
             label = f"{family}-10"
-            specs = self.serve_specs(g, [], 4, seed=9)
+            specs = self.serve_specs(g, [], 4, seed=9, kinds=ALL_KINDS)
             want = {src: self.ref_bfs.bfs_levels(g, src)
                     for src in {src for _, src, _ in specs}}
             for layout in ("packed", "mma", "byteplane"):
@@ -1549,7 +1624,7 @@ class Smoke:
                         try:
                             self.workloads.verify_result(
                                 t.result(), t.query, want[t.query.source],
-                                unreached=self.ref_bfs.UNREACHED)
+                                unreached=self.ref_bfs.UNREACHED, graph=g)
                         except AssertionError as e:
                             fail(f"{label} {layout}/{switching} megatick "
                                  f"{megatick}: {e}")
@@ -1755,6 +1830,318 @@ class Smoke:
             f"{self.serve_rows[-1]}")
         return rows_out
 
+    # ----------------------------- phase 2d: the analytics kernels' pool --
+    def analytics_pool(self, seed: int = 4):
+        """Kernels A-C against their plain versions, bit for bit: n in
+        ANALYTICS_NS (ragged word tails), rows of a random graph with
+        self-loops, all zero and all one, each fresh and as a view one
+        element in (the kernels' word-a-thread instances); kappa in {1, 8,
+        32}; candidate sets random, empty and full, priorities random or all
+        equal (ties broken by id); pairs in runs, duplicated, and naming the
+        zero pad row on both sides."""
+        np = self.np
+        rng = np.random.default_rng(seed)
+        for n in ANALYTICS_NS:
+            loops = rng.integers(0, n, max(1, n // 8))
+            g = self.from_edges(
+                np.concatenate([rng.integers(0, n, 3 * n), loops]),
+                np.concatenate([rng.integers(0, n, 3 * n), loops]), n=n,
+                drop_self_loops=False)
+            adj = self.triangles.packed_adjacency(g)
+            for name, rows in (("graph", adj), ("zero", np.zeros_like(adj)),
+                               ("one", np.full_like(adj, 0xFFFFFFFF))):
+                for view in (False, True):
+                    self.analytics_case(
+                        rng, rows, view, f"pool n={n}, {name} rows"
+                        + (", a view one element in" if view else ""))
+
+    def words_on_card(self, words, view=False):
+        """(r, nw) uint32 words as int32 on the device; with ``view``, a
+        view one element into a larger buffer (not 16-byte aligned)."""
+        flat = self.t(words.view(self.np.int32).reshape(-1))
+        if not view:
+            return flat.view(words.shape)
+        buf = self.torch.empty(flat.numel() + 1, dtype=flat.dtype,
+                               device=self.dev)
+        buf[1:] = flat
+        return buf[1:].view(words.shape)
+
+    def same_plain(self, name, args, what):
+        k = self.kernels[name]
+        self.same(name, k["fn"](*args), k["plain"](*args), what)
+
+    def analytics_case(self, rng, rows_np, view, what):
+        np = self.np
+        n, nw = rows_np.shape
+        rows = self.words_on_card(rows_np, view)
+        for kappa in (1, 8, 32):
+            self.same_plain("lane_any", (rows, self.rand_words(
+                rng, (kappa, nw))), f"{what}, kappa={kappa}")
+        for cname, cand in (("random", rng.random(n) < 0.5),
+                            ("empty", np.zeros(n, bool)),
+                            ("full", np.ones(n, bool))):
+            prio = (np.full(n, 7, np.uint32) if rng.random() < 0.25 else
+                    rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                    .astype(np.uint32))
+            self.same_plain(
+                "luby_local_min", (rows, self.triangles.pack_vertices(
+                    self.t(cand)), self.t(prio.view(np.int32))),
+                f"{what}, {cname} candidates")
+        ext = self.words_on_card(
+            np.vstack([rows_np, np.zeros((1, nw), np.uint32)]), view)
+        p = int(rng.integers(1, 4 * n + 2))
+        a = np.sort(rng.integers(0, n + 1, p))  # runs of equal a
+        b = rng.integers(0, n + 1, p)
+        a[-1] = b[0] = n  # the zero pad row
+        a, b = np.concatenate([a, a[:3]]), np.concatenate([b, b[:3]])
+        self.same_plain("and_popc_pairs", (ext, self.t(a), self.t(b)),
+                        f"{what}, {a.size} pairs")
+
+    # ------------------------------------------------ phase 7: analytics --
+    def csr_triangles(self, ptrs, cols, v):
+        """Triangles at ``v`` from the symmetrized CSR alone, independent of
+        the packed rows: mark N(v), then count the marked members of each
+        neighbour's list; each triangle is met from both other corners."""
+        np = self.np
+        nb = cols[ptrs[v]:ptrs[v + 1]].astype(np.int64)
+        if nb.size == 0:
+            return 0
+        mark = np.zeros(ptrs.size - 1, bool)
+        mark[nb] = True
+        lo, lens = ptrs[nb], ptrs[nb + 1] - ptrs[nb]
+        starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        idx = np.repeat(lo - starts, lens) + np.arange(lens.sum())
+        return int(mark[cols[idx]].sum()) // 2
+
+    def analytics_phase(self, scale: int):
+        """Phase 7 on kron-``scale`` and delaunay-``scale``; the launch
+        counts are zeroed just before each graph's path and read just
+        after it; returns kernels A-C's rows (timed at kron's shapes)."""
+        ops = self.ops
+        counts = dict.fromkeys(ANALYTICS_KERNELS, 0)
+        rows_out = []
+        for family in ("kron", "delaunay"):
+            g = self.graphs.make(family, scale, seed=0)
+            self.sync()
+            ops.reset_launch_counts()
+            self.analytics_graph(g, f"{family}-{scale}")
+            self.sync()
+            got = ops.launch_counts()
+            for k in ANALYTICS_KERNELS:
+                counts[k] += got[k]
+            if family == "kron":
+                rows_out = self.analytics_kernels(g)
+            del g
+            gc.collect()
+            if self.dev.type == "cuda":
+                self.torch.cuda.empty_cache()
+        log(f"analytics path launches: {counts}")
+        missing = [k for k in ANALYTICS_KERNELS if counts[k] == 0]
+        if missing:
+            fail(f"kernels never launched on the analytics path: {missing}")
+        for row in rows_out:
+            row["launches"] = counts[row["name"]]
+        return rows_out
+
+    def analytics_graph(self, g, label):
+        """cc, MIS and triangles of ``g`` against their independent checks,
+        then the engines; appends the graph's ``{"analytics"}`` entry."""
+        np = self.np
+        comp, mis, tri = self.components, self.mis, self.triangles
+        gs = g.symmetrized()
+        nw = (g.n + 31) // 32
+        e = {"graph": label, "n": g.n, "m": g.m, "m_symmetrized": gs.m,
+             "adjacency_bytes": 4 * g.n * nw,
+             "symmetric": comp.is_symmetric(g)}
+        t0 = time.perf_counter()
+        want = comp.connected_components_ref(g)
+        e["cc_union_find_s"] = time.perf_counter() - t0
+        st = {}
+        t0 = time.perf_counter()
+        got = comp.connected_components_packed(g, kappa=32, device=self.dev,
+                                               stats=st)
+        e["cc_packed_s"] = time.perf_counter() - t0
+        e.update(cc_batches=st["batches"], cc_levels=st["levels"],
+                 components=int(np.unique(want).size))
+        if not np.array_equal(got, want):
+            fail(f"{label}: connected_components_packed differs from "
+                 "union-find")
+        t0 = time.perf_counter()
+        want = mis.mis_ref(g, seed=0)
+        e["mis_ref_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = mis.mis_packed(g, seed=0, device=self.dev, stats=st)
+        e.update(mis_s=time.perf_counter() - t0, mis_rounds=st["rounds"],
+                 mis_size=int(got.sum()))
+        if not np.array_equal(got, want):
+            fail(f"{label}: mis_packed differs from mis_ref")
+        try:
+            mis.mis_verify(g, got)
+        except AssertionError as err:
+            fail(f"{label}: mis_packed's set: {err}")
+        t0 = time.perf_counter()
+        tpv = tri.triangles_per_vertex(g, device=self.dev)
+        e["tpv_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        count = tri.triangle_count(g, device=self.dev)
+        e.update(triangle_count_s=time.perf_counter() - t0, triangles=count)
+        if int(tpv.sum()) != 3 * count:
+            fail(f"{label}: triangles_per_vertex sums to {int(tpv.sum())}, "
+                 f"not 3 x {count}")
+        ptrs, cols = gs.csr
+        deg = np.diff(ptrs)
+        check = np.unique(np.concatenate([
+            np.argsort(deg, kind="stable")[-8:],
+            np.random.default_rng(12).choice(g.n, TPV_CHECKS - 8,
+                                             replace=False)]))
+        t0 = time.perf_counter()
+        bad = [int(v) for v in check
+               if self.csr_triangles(ptrs, cols, int(v)) != tpv[v]]
+        e["csr_check_s"] = time.perf_counter() - t0
+        if bad:
+            fail(f"{label}: triangles_per_vertex differs from the CSR count "
+                 f"at {bad[:8]}")
+        e["max_degree"] = int(deg.max())
+        specs = self.serve_specs(g, [], ANALYTICS_SOURCES, seed=13,
+                                 kinds=ALL_KINDS)
+        srcs = {src for _, src, _ in specs}
+        levels = {s: self.ref_bfs.bfs_levels(g, s) for s in srcs}
+        tri_at = {s: self.csr_triangles(ptrs, cols, s) for s in srcs}
+        e["engines"] = [self.analytics_engine(g, label, specs, levels,
+                                              tri_at, megatick=mt)
+                        for mt in (1, 64)]
+        self.analytics_rows.append(e)
+        log(f"analytics {e}")
+
+    def analytics_engine(self, g, label, specs, levels, tri_at, megatick):
+        """One engine (packed, kappa 32, switching auto, natural order as
+        phase 6's kron engines: with the automatic reorder dispatch a
+        kron-17 build took 166-179 s on an H100) on the seven-kind stream:
+        tpv against the CSR count, every other kind through verify_result
+        (graph=g for cc and mis)."""
+        eng = self.bfs_engine.BfsEngine(kappa=32, layout="packed",
+                                        switching="auto", megatick=megatick,
+                                        reorder="natural", device=self.dev)
+        builds = len(self.state_builds)
+        eng.register_graph(label, g)
+        t0 = time.perf_counter()
+        eng.cache.get(label)
+        self.sync()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tickets = [eng.submit(label, src, kind, target=tgt)
+                   for kind, src, tgt in specs]
+        eng.run()
+        self.sync()
+        wall = time.perf_counter() - t0
+        for t in tickets:
+            if t.state != "DONE":
+                fail(f"{label}: ticket {int(t)} ended {t.state}: {t.error}")
+            q, r = t.query, t.result()
+            if q.kind == "tpv":
+                if r.triangles != tri_at[q.source]:
+                    fail(f"{label}: tpv ticket from {q.source}: "
+                         f"{r.triangles}, CSR count {tri_at[q.source]}")
+                continue
+            try:
+                self.workloads.verify_result(
+                    r, q, levels[q.source],
+                    unreached=self.ref_bfs.UNREACHED, graph=g)
+            except AssertionError as err:
+                fail(f"{label} megatick {megatick}: {err}")
+        state_s = {kind: s for _, kind, s in self.state_builds[builds:]}
+        st = eng.stats
+        row = {"layout": "packed", "switching": "auto", "kappa": 32,
+               "megatick": megatick, "tickets": len(tickets),
+               "build_s": build_s, "wall_s": wall,
+               "tickets_per_s": len(tickets) / wall,
+               "state_build_s": state_s,
+               "serving_s": wall - sum(state_s.values()),
+               "levels": st["levels"], "megaticks": st["megaticks"],
+               "host_syncs": st["host_syncs"],
+               "syncs_per_level": st["host_syncs"] / max(1, st["levels"])}
+        del eng, tickets
+        gc.collect()
+        if self.dev.type == "cuda":
+            self.torch.cuda.empty_cache()
+        return row
+
+    def analytics_kernels(self, g):
+        """Kernels A-C at ``g``'s shapes, against their plain versions, with
+        times and bounds: A on 32 seeded lanes (a first cc level), B on the
+        first Luby round, C over every edge in CSR order (the whole-graph
+        form) and over the highest-degree vertex's neighbours (one tpv
+        query, also as a replayed CUDA graph)."""
+        np, torch = self.np, self.torch
+        tri = self.triangles
+        rows = tri.device_rows(tri.packed_adjacency(g), self.dev)
+        n, nw = rows.shape
+        row_bytes = 4 * nw
+        seeds = self.sources(g, 32, seed=14)
+        fw = np.zeros((32, nw), np.uint32)
+        fw[np.arange(32), seeds // 32] = np.uint32(1) << (seeds % 32).astype(
+            np.uint32)
+        prio = self.mis.luby_keys(n, 0, 0)
+        gs = g.symmetrized()
+        a, b = self.t(gs.src.astype(np.int64)), self.t(gs.dst.astype(np.int64))
+        ptrs, cols = gs.csr
+        v = int(np.argmax(np.diff(ptrs)))
+        nbrs = self.t(cols[ptrs[v]:ptrs[v + 1]].astype(np.int64))
+        deg = nbrs.numel()
+        named = np.unique(np.concatenate([gs.src, gs.dst])).size
+        cells = {
+            "lane_any": ((rows, self.words_on_card(fw)),
+                         rows.numel() * 4 + fw.nbytes + 32 * n,
+                         n * nw + 32 * 32 * nw + gs.m),
+            "luby_local_min": ((rows, self.triangles.pack_vertices(
+                torch.ones(n, dtype=torch.bool, device=self.dev)),
+                                self.t(prio.view(np.int32))),
+                               rows.numel() * 4 + 4 * nw + 5 * n,
+                               n * nw + 2 * gs.m),
+            "and_popc_pairs": ((rows, a, b),
+                               named * row_bytes + 20 * gs.m, gs.m * nw),
+        }
+        what = f"{g.n} vertices, {nw} words a row"
+        out = []
+        for name, (args, nbytes, nops) in cells.items():
+            k = self.kernels[name]
+            self.same(name, k["fn"](*args), k["plain"](*args), what)
+            whole = name == "and_popc_pairs"
+            row = {"name": name, "route": "cuda", "source": k["source"],
+                   "replaces": k["replaces"],
+                   "ms": self.time_ms(lambda: k["fn"](*args),
+                                      iters=5 if whole else 20),
+                   "plain_ms": self.time_ms(lambda: k["plain"](*args),
+                                            iters=1, warmup=0 if whole else 1)}
+            row.update(self.bound(nbytes, nops), library_ms=None)
+            if whole:
+                # row a read once a run of equal a, row b once a pair
+                row["bound_rows_per_pair_ms"] = (
+                    (n + gs.m) * row_bytes / HBM_BYTES_PER_S * 1e3)
+                q = (rows, torch.full((deg,), v, dtype=torch.int64,
+                                      device=self.dev), nbrs)
+                self.same(name, k["fn"](*q), k["plain"](*q),
+                          f"{what}, one tpv query ({deg} pairs)")
+                row["query"] = {
+                    "pairs": deg, "ms": self.time_ms(lambda: k["fn"](*q)),
+                    "graph_ms": self.time_graph_ms(lambda: k["fn"](*q)),
+                    "plain_ms": self.time_ms(lambda: k["plain"](*q),
+                                             iters=2, warmup=1),
+                    **self.bound((deg + 1) * row_bytes + 20 * deg, deg * nw)}
+            row["max_abs_err"] = k["max_abs_err"]
+            log(f"{name}: {row} ({nbytes} bytes, {nops} operations) at "
+                f"{what}")
+            out.append(row)
+        return out
+
+    def bound(self, nbytes, nops, peak=ALU_OPS_PER_S):
+        """The least time for ``nbytes`` moved once and ``nops`` operations
+        at ``peak``, and which of the two sets it."""
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / peak * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
     def sources(self, g, k, seed):
         np = self.np
         cand = np.nonzero(g.out_degree > 0)[0]
@@ -1770,7 +2157,8 @@ def nvidia_smi() -> str:
     return out.stdout.strip()
 
 
-def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
+def run(smoke: Smoke, kron_scale: int, road_scale: int,
+        analytics_scale: int = 17) -> list[dict]:
     ops, graphs, Blest = smoke.ops, smoke.graphs, smoke.Blest
 
     log("phase 2: kernels against their plain versions over the shape pool")
@@ -1778,6 +2166,7 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
     smoke.ms_kernel_pool()
     smoke.packed_runs_pool()
     smoke.serve_kernel_pool()
+    smoke.analytics_pool()
 
     log(f"phase 3: main path, kron scale {kron_scale}")
     t0 = time.perf_counter()
@@ -1856,6 +2245,15 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int) -> list[dict]:
                                      serve_kron_road))
         if row["name"] in smoke.road_kernels:
             row["road"] = smoke.road_kernels[row["name"]]
+    del kron, road
+    gc.collect()
+    if smoke.dev.type == "cuda":
+        smoke.torch.cuda.empty_cache()
+
+    log(f"phase 7: analytics, kron and delaunay scale {analytics_scale}")
+    t0 = time.perf_counter()
+    kernel_rows += smoke.analytics_phase(analytics_scale)
+    log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
     return kernel_rows
 
 
@@ -1863,6 +2261,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kron-scale", type=int, default=22)
     ap.add_argument("--road-scale", type=int, default=20)
+    ap.add_argument("--analytics-scale", type=int, default=17)
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -1885,12 +2284,14 @@ def main(argv=None) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
     smoke = Smoke(torch.device("cuda"))
-    kernel_rows = run(smoke, args.kron_scale, args.road_scale)
+    kernel_rows = run(smoke, args.kron_scale, args.road_scale,
+                      args.analytics_scale)
     print(smi)
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"bfs": smoke.bfs_rows}))
     print(json.dumps({"msbfs": smoke.ms_rows}))
     print(json.dumps({"serve": smoke.serve_rows}))
+    print(json.dumps({"analytics": smoke.analytics_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -71,6 +71,12 @@ SIGNATURES = {
         "blest_fused_vss_per_block": ([_INT, _INT, _INT], _INT),
         "blest_error_string": ([_INT], ctypes.c_char_p),
     },
+    "blest_analytics": {
+        "blest_lane_any": ([_P, _P, _P, _P, _I64, _I64, _INT, _P], _INT),
+        "blest_luby_local_min": ([_P, _P, _P, _P, _I64, _I64, _P], _INT),
+        "blest_and_popc_pairs": ([_P, _P, _P, _P, _I64, _I64, _P], _INT),
+        "blest_error_string": ([_INT], ctypes.c_char_p),
+    },
     "blest_graph": {
         "blest_if_graph": ([_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P)],
                            _INT),

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import analytics as _analytics
 from repro_torch.kernels import frontier_sweep as _sweep
 from repro_torch.kernels import pull_mma_ms_packed as _mma
 from repro_torch.kernels import pull_ms as _pull_ms
@@ -23,7 +24,9 @@ KERNELS = (_pull_ss.pull_ss, _pull_ss.pull_ss_packed, _sweep.frontier_sweep,
            _pull_ms.pull_ms, _pull_ms_packed.pull_ms_packed,
            _scatter_or.scatter_or, _mma.pull_mma_ms_packed,
            _pull_scatter.pull_scatter_ms_packed,
-           _queued.pull_ms_packed_queued, _mma.pull_scatter_mma_ms_packed)
+           _queued.pull_ms_packed_queued, _mma.pull_scatter_mma_ms_packed,
+           _analytics.lane_any, _analytics.luby_local_min,
+           _analytics.and_popc_pairs)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -105,6 +108,24 @@ def pull_scatter_mma_ms_packed(v, a_planes, f_packed, v2r, rows, *,
             v, a_planes, f_packed.index_select(0, v2r), rows)
     return _mma.pull_scatter_mma_ms_packed(v, a_planes, f_packed, v2r, rows,
                                            sigma=sigma)
+
+
+def lane_any(rows, fw):
+    if _on_cpu(rows):
+        return _analytics.lane_any_ref(rows, fw)
+    return _analytics.lane_any(rows, fw)
+
+
+def luby_local_min(rows, cand, prio):
+    if _on_cpu(rows):
+        return _analytics.luby_local_min_ref(rows, cand, prio)
+    return _analytics.luby_local_min(rows, cand, prio)
+
+
+def and_popc_pairs(rows, a, b):
+    if _on_cpu(rows):
+        return _analytics.and_popc_pairs_ref(rows, a, b)
+    return _analytics.and_popc_pairs(rows, a, b)
 
 
 def launch_counts() -> dict[str, int]:

@@ -4,7 +4,8 @@ batching, per-level dense/queued mode switching gated by a cached per-graph
 probe) behind a ticket-based, non-blocking service API with a hardened
 request lifecycle (``lifecycle``); what a lane computes is a
 :class:`~repro_torch.serve.workloads.Workload` plugin (``workloads``:
-``bfs``/``closeness``/``distance``/``reach`` built in, ``register`` for
-more), with megatick windows of up to T levels on the device.  Counterpart
-of ``repro.serve``; the analytics kinds and mesh serving are not ported
-yet (ROADMAP.md queue 1)."""
+``bfs``/``closeness``/``distance``/``reach`` and the graph-analytics
+kinds ``cc``/``mis``/``tpv``, with their per-graph state, built in;
+``register`` for more), with megatick windows of up to T levels on the
+device.  Counterpart of ``repro.serve``; mesh serving is not ported yet
+(ROADMAP.md queue 1)."""

@@ -104,6 +104,7 @@ from repro_torch.serve import lifecycle as lifecycle_mod
 from repro_torch.serve import workloads as workloads_mod
 from repro_torch.serve.workloads import (  # re-exported: request/result
     KIND_BFS, KIND_CLOSENESS, KIND_DISTANCE, KIND_REACH,  # noqa: F401
+    KIND_CC, KIND_MIS, KIND_TPV,  # noqa: F401
     BfsQuery, BfsResult, Workload)
 
 SWITCHING_MODES = ("auto", "on", "off")
@@ -1214,8 +1215,9 @@ _RESULT_FIELDS = frozenset(BfsResult.__dataclass_fields__)
 # extract() override typing (§15.3): a workload returning a malformed
 # override corrupts every caller downstream, so the engine rejects it
 # loudly at extraction instead
-_INT_RESULT_FIELDS = frozenset({"far", "reach", "admitted_at_level",
-                                "distance"})
+_INT_RESULT_FIELDS = frozenset({
+    "far", "reach", "admitted_at_level", "distance", "component",
+    "component_size", "mis_size", "triangles"})
 
 
 def _check_extract_field(kind: str, field: str, value, n: int) -> None:
@@ -1236,6 +1238,11 @@ def _check_extract_field(kind: str, field: str, value, n: int) -> None:
             raise ValueError(
                 f"workload {kind!r} extract() returned a non-int "
                 f"{field!r}: {value!r}")
+    elif field == "in_mis":
+        if not isinstance(value, (bool, np.bool_)):
+            raise ValueError(
+                f"workload {kind!r} extract() returned a non-bool "
+                f"'in_mis': {value!r}")
     elif field == "closeness":
         if not isinstance(value, (float, np.floating)):
             raise ValueError(
@@ -1286,6 +1293,10 @@ class _GraphSession:
         self.tl = np.full(kappa, UNREACHED, np.int64)
         self.policy_on = engine._policy_active(art)
         self.perm_dev = None  # art.perm on the device, at first extraction
+        # session-held workload graph state (§15.2): populated from the
+        # engine memo at first use, kept here so eviction mid-service
+        # never forces a rebuild (the same pinning rule as art/runner)
+        self.graph_states: dict[str, object] = {}
         self.state = self.runner.init_state()
         self.ell = 0
         # device copies of the lane metadata the megatick window reads;
@@ -1582,11 +1593,17 @@ class _GraphSession:
             if (wl.watches_target and self.watch_ids[i] >= 0
                     and self.tl[i] != UNREACHED):
                 target_level = int(self.tl[i] - self.admitted_at[i])
+            gstate = None
+            if wl.has_graph_state:
+                if q.kind not in self.graph_states:
+                    self.graph_states[q.kind] = eng._workload_graph_state(
+                        self.name, wl, art.graph)
+                gstate = self.graph_states[q.kind]
             view = workloads_mod.LaneView(
                 query=q, n=n, admitted_at_level=int(self.admitted_at[i]),
                 far=int(self.far64[i]), reach=int(self.reach_host[i]),
                 levels=cols.get(i), target_level=target_level,
-                acc=self.accs[i])
+                acc=self.accs[i], graph_state=gstate)
             res = BfsResult(
                 rid=q.rid, graph=q.graph, source=q.source, kind=q.kind,
                 levels=None, far=view.far, reach=view.reach, closeness=None,
@@ -1788,6 +1805,11 @@ class BfsEngine:
         self.cache.build_priority = (
             lambda name: len(self._queues.get(name) or ()))
         self._runners: dict[str, _LaneRunner] = {}
+        # per-graph workload state (DESIGN.md §15.2): graph name ->
+        # {kind: Workload.graph_state(graph)}, built lazily on the first
+        # finished lane of that kind and dropped with the cache entry
+        # (live sessions hold their own reference, like the substrate)
+        self._wl_state: dict[str, dict[str, object]] = {}
         self._queues: OrderedDict[str, _TenantQueue] = OrderedDict()
         # artifacts whose build landed but whose session has not opened
         # yet: held by reference so cache pressure between install and
@@ -1850,6 +1872,9 @@ class BfsEngine:
                 f"workload kind {workload.kind!r} already registered on "
                 f"this engine (pass replace=True to override)")
         self._workloads[workload.kind] = workload
+        # a replaced workload's memoized per-graph state is stale
+        for per in self._wl_state.values():
+            per.pop(workload.kind, None)
 
     @property
     def workload_kinds(self) -> list[str]:
@@ -2548,6 +2573,17 @@ class BfsEngine:
 
     def _drop_runner(self, name: str) -> None:
         self._runners.pop(name, None)
+        self._wl_state.pop(name, None)
+
+    def _workload_graph_state(self, name: str, wl: Workload, graph) -> object:
+        """Memoized ``Workload.graph_state`` for ``graph`` (§15.2), on this
+        engine's device: shared across sessions while the cache entry
+        lives, rebuilt lazily after eviction (a live session keeps its own
+        reference, see ``_GraphSession.graph_states``)."""
+        per = self._wl_state.setdefault(name, {})
+        if wl.kind not in per:
+            per[wl.kind] = wl.graph_state(graph, device=self.device)
+        return per[wl.kind]
 
     def _policy_active(self, art: GraphArtifacts) -> bool:
         """Resolve the per-graph mode policy (DESIGN.md §10.3): 'off' forces

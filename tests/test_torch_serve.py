@@ -9,8 +9,9 @@ off and on; and scripted request lifecycles under an injected clock
 (reject, defer, deadlines, cancellation, tenant weights, build retries,
 MMA quarantine), whose ticket states, timestamps and results must be
 equal.  Against the oracle: every cell of ``tests/workload_matrix.py``
-(layout x switching x megatick) with the port's four kinds.  Levels, words
-and counts are integers: equality is exact (tolerance 0).
+(layout x switching x megatick) with all seven kinds.  Levels, words,
+counts, labels and memberships are integers: equality is exact
+(tolerance 0).
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ from workload_matrix import (  # noqa: E402
     MATRIX, MATRIX_LAYOUTS, MEGATICKS, QUERY_FACTORIES, matrix_graphs)
 
 UNREACHED = ref_bfs.UNREACHED
-KINDS = ("bfs", "closeness", "distance", "reach")
+KINDS = ("bfs", "closeness", "distance", "reach", "cc", "mis", "tpv")
 PKGS = {
     "repro": types.SimpleNamespace(
         mod=j_engine, graphs=j_graphs, lc=j_lifecycle,
@@ -63,7 +64,9 @@ def _summary(t) -> tuple:
         return out
     r = t.result()
     return out + (None if r.levels is None else r.levels.tolist(), r.far,
-                  r.reach, r.closeness, r.distance, r.admitted_at_level)
+                  r.reach, r.closeness, r.distance, r.admitted_at_level,
+                  r.component, r.component_size, r.in_mis, r.mis_size,
+                  r.triangles)
 
 
 # ---------------------------------------------------------------------------
@@ -367,7 +370,7 @@ def test_scripted_lifecycle_matches_reference(scenario, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the workload matrix: every cell, the port's kinds, vs the oracle
+# the workload matrix: every cell, all seven kinds, vs the oracle
 # ---------------------------------------------------------------------------
 
 
@@ -377,9 +380,10 @@ PORT_CELLS = list(MATRIX)
 @pytest.mark.parametrize("layout,switching,eta,megatick", PORT_CELLS)
 def test_workload_matrix_cell(layout, switching, eta, megatick):
     """Every cell of tests/workload_matrix.py (layout x switching x
-    megatick) on the port's engine: bfs / closeness / distance / reach
-    queries interleaved over the matrix graphs, each result through
-    verify_result against ref_bfs; the forced layout resolved."""
+    megatick) on the port's engine: queries of all seven kinds interleaved
+    over the matrix graphs, each result through verify_result against
+    ref_bfs and, for cc / mis / tpv, the graph's own references; the forced
+    layout resolved."""
     eng = t_engine.BfsEngine(layout=layout, switching=switching, eta=eta,
                              megatick=megatick, kappa=32, device="cpu")
     rng = np.random.default_rng(
@@ -400,7 +404,8 @@ def test_workload_matrix_cell(layout, switching, eta, megatick):
     for ticket, g in want:
         workloads.verify_result(
             results[int(ticket)], ticket.query,
-            ref_bfs.bfs_levels(g, ticket.query.source), unreached=UNREACHED)
+            ref_bfs.bfs_levels(g, ticket.query.source), unreached=UNREACHED,
+            graph=g)
     for name in matrix_graphs():
         r = eng._runners[name]
         assert r.layout == layout
