@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--kron-scale 22] [--road-scale 20]
-                          [--analytics-scale 17]
+                          [--analytics-scale 17] [--launch-scale 20]
 
 Run from the root of a checkout; it needs one CUDA device, and nvcc to build
 the kernels.  Phases, each fatal (exit code 1, no result line):
@@ -134,6 +134,23 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    equality with their plain versions, times, bounds (C also over one
    tpv query at the highest-degree vertex, also as a replayed CUDA
    graph).
+8. The BRS baseline, Fig. 5 and the launchers (no kernel of their own).
+   (a) ``brs_baseline.build_brs`` must refuse phase 3's kron-22 BVSS
+   (natural order; over the card's memory); then BRS at road-20 and at
+   kron-17 (``--analytics-scale``), each from ``build_bvss`` in the
+   graph's natural order (sigma 8, tau 128): build seconds, the
+   structure's bytes, ``work_metrics``, the peak device bytes above those
+   allocated before the build (under 2x the structure), ``bfs_brs`` from
+   3 seeded sources equal to the oracle, the median ms of 5 runs from
+   each, beside ``FusedBfs`` (Table 2's BLEST: phase 4's RCM road Blest,
+   a natural-order kron-17 Blest) on the same sources, equal to the oracle
+   too; ``bfs_brs`` on the card equal to the same function on the CPU at
+   every family at scale 10.  (b) ``switching.per_level_analysis`` on
+   phase 3's kron-22 and phase 4's road-20 ``bd`` (Fig. 5).  (c) Each run
+   of ``LAUNCHES`` (``repro_torch.launch.bfs`` and ``.serve_bfs`` with
+   ``--verify``, scales capped by ``--launch-scale``; the serve runs with
+   a health file, parsed after) and the four ``examples/port`` scripts,
+   each a subprocess that must exit 0, its wall seconds recorded.
 
 Prints, before the last line: the card's name and power limit (as
 nvidia-smi gives them), one JSON line ``{"kernels": [...]}`` (launches on the
@@ -159,8 +176,14 @@ per tick, p50 and p99 ticket latency) and one JSON line
 seconds of union-find, cc_packed with its batches and levels, mis_ref,
 mis_packed with its rounds, triangles_per_vertex and triangle_count; per
 engine wall, tickets/s, host syncs per level, and each kind's graph-state
-build in seconds, apart from ``serving_s``).  The last line is
-``{"ok": true, "device": {...}}``.
+build in seconds, apart from ``serving_s``), one JSON line ``{"brs":
+[...]}`` (per phase-8 BRS cell: build and structure bytes, work metrics,
+peak bytes, BRS and BLEST ms per source and their medians, the ratio),
+one JSON line ``{"switching": [...]}`` (per graph: levels, the
+misclassification rate, optimal over BLEST, each policy's total seconds)
+and one JSON line ``{"launch": [...]}`` (per run: arguments, exit code,
+wall seconds, last line; for the serve runs the served line and health
+fields).  The last line is ``{"ok": true, "device": {...}}``.
 
 Edges/s is the number of directed edges (u, v) of the graph whose source u
 was reached, over the wall time of one ``Blest.bfs`` call (which includes
@@ -176,7 +199,9 @@ import argparse
 import gc
 import hashlib
 import json
+import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -218,6 +243,33 @@ ANALYTICS_SOURCES = 16       # x 7 kinds = 112 tickets on 32 lanes
 TPV_CHECKS = 64              # vertices held against the CSR count
 KRON_SERVE_SOURCES = 128     # x 4 kinds = 512 tickets on 256 lanes
 ROAD_SERVE_SOURCES = 16      # x 4 kinds = 64 tickets on 32 lanes
+BRS_SOURCES = 3              # phase 8: sources of each BRS / BLEST cell
+BRS_RUNS = 5                 # timed runs from each source
+LAUNCH_TIMEOUT = 600         # seconds a launcher or example may take
+# phase 8 (c): (name, module, arguments); scales are capped by --launch-scale
+LAUNCHES = (
+    ("bfs kron", "repro_torch.launch.bfs",
+     "--family kron --scale 20 --workload bfs --reorder natural --verify"),
+    ("bfs road", "repro_torch.launch.bfs",
+     "--family road --scale 20 --workload bfs --verify"),
+    # scale 18: at kron-20 the 64 numpy oracle BFSs of --verify made the
+    # run take over 100 s
+    ("msbfs kron", "repro_torch.launch.bfs",
+     "--family kron --scale 18 --workload msbfs --kappa 64 --reorder "
+     "natural --verify"),
+    ("closeness kron", "repro_torch.launch.bfs",
+     "--family kron --scale 12 --workload closeness --kappa 64 --verify"),
+    ("triangles kron", "repro_torch.launch.bfs",
+     "--family kron --scale 16 --workload triangles --verify"),
+    ("serve packed", "repro_torch.launch.serve_bfs",
+     "--families kron,road --scale 13 --requests 256 --kappa 32 --kinds "
+     "bfs,closeness,distance,reach,cc,mis,tpv --verify --megatick 64"),
+    ("serve mma", "repro_torch.launch.serve_bfs",
+     "--families kron,road --scale 13 --requests 256 --kappa 32 --kinds "
+     "bfs,closeness,distance,reach,cc,mis,tpv --verify --megatick 64 "
+     "--layout mma --switching on"),
+)
+EXAMPLES = ("quickstart", "multi_source_bfs", "bfs_service", "graph_analytics")
 
 
 def fail(msg: str) -> None:
@@ -246,8 +298,9 @@ class Smoke:
         import numpy as np
         import torch
 
-        from repro_torch.core import (blest, components, mis, msbfs,
-                                      msbfs_packed, ref_bfs, triangles, window)
+        from repro_torch.core import (blest, brs_baseline, components, mis,
+                                      msbfs, msbfs_packed, ref_bfs, switching,
+                                      triangles, window)
         from repro_torch.core.bvss import BvssConfig, build_bvss
         from repro_torch.core.graph import Graph, from_edges
         from repro_torch.core.pipeline import Blest
@@ -271,6 +324,7 @@ class Smoke:
         self.window = window
         self.components, self.mis, self.triangles = components, mis, triangles
         self.from_edges = from_edges
+        self.brs, self.switching = brs_baseline, switching
         self.windows_run = 0      # LevelWindow.run calls, all phases
         self.window_pools: list[int] = []  # each capture's pool bytes
         self.instrument_windows()
@@ -355,6 +409,9 @@ class Smoke:
         self.ms_rows: list[dict] = []
         self.serve_rows: list[dict] = []
         self.analytics_rows: list[dict] = []
+        self.brs_rows: list[dict] = []
+        self.switching_rows: list[dict] = []
+        self.launch_rows: list[dict] = []
         self.state_builds: list[tuple] = []  # (graph, kind, seconds)
         self.instrument_state_builds()
         self.family_graphs: dict = {}  # scale-10 graphs, one object each
@@ -2134,6 +2191,258 @@ class Smoke:
             out.append(row)
         return out
 
+    # ---------------------------------- phase 8 (a): the BRS baseline --
+    def median_ms(self, fn, sources):
+        """Each source's median over BRS_RUNS timed calls of ``fn(src)``
+        (host clock around a call that ends in a device synchronize), and
+        the median over all of them."""
+        np = self.np
+        per = []
+        for s in sources:
+            fn(int(s))  # the first call may capture its level window
+            runs = []
+            for _ in range(BRS_RUNS):
+                self.sync()
+                t0 = time.perf_counter()
+                fn(int(s))
+                self.sync()
+                runs.append((time.perf_counter() - t0) * 1e3)
+            per.append(float(np.median(runs)))
+        return per, float(np.median(per))
+
+    def brs_cell(self, g, label, b, order):
+        """BRS (``build_bvss`` in ``g``'s natural order, sigma 8, tau 128,
+        as benchmarks/table2_ssbfs.py builds it) against BLEST's fused
+        driver on the preprocessed ``b`` (reorder ``order``): levels equal
+        to the oracle from BRS_SOURCES sources, each side's median ms,
+        the structure's bytes and the peak device bytes above what was
+        allocated before the build (under 2x the structure: no int32 copy
+        of the bits was made)."""
+        torch, brs_mod = self.torch, self.brs
+        on_card = self.dev.type == "cuda"
+        t0 = time.perf_counter()
+        bv = self.build_bvss(g, self.BvssConfig())
+        bvss_s = time.perf_counter() - t0
+        self.sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if on_card else 0
+        t0 = time.perf_counter()
+        brs = brs_mod.build_brs(bv, device=self.dev)
+        self.sync()
+        build_s = time.perf_counter() - t0
+        del bv
+        sources = [int(s) for s in self.sources(g, BRS_SOURCES, seed=8)]
+        oracle = {s: self.ref_bfs.bfs_levels(g, s) for s in sources}
+        for s in sources:
+            if not (brs_mod.bfs_brs(brs, s).cpu().numpy() == oracle[s]).all():
+                fail(f"{label}: bfs_brs from {s} differs from the oracle")
+        per, med = self.median_ms(lambda s: brs_mod.bfs_brs(brs, s), sources)
+        peak = torch.cuda.max_memory_allocated() - base if on_card else None
+        if on_card and peak >= 2 * brs.nbytes:
+            fail(f"{label}: BRS peak {peak} bytes, not under 2 x its "
+                 f"structure's {brs.nbytes}")
+        fused = self.blest.FusedBfs(b.bd, lazy=b.stats.lazy)
+        for s in sources:
+            if not (fused(int(b.perm[s])).cpu().numpy()[b.perm]
+                    == oracle[s]).all():
+                fail(f"{label}: FusedBfs from {s} differs from the oracle")
+        per_b, med_b = self.median_ms(lambda s: fused(int(b.perm[s])),
+                                      sources)
+        lv = oracle[sources[0]]
+        scatter = self.pad_scatter_ms(brs)
+        row = {"graph": label, "n": g.n, "m": g.m,
+               "brs_order": "natural", "blest_order": order,
+               "blest_lazy": b.stats.lazy, "bvss_s": bvss_s,
+               "build_s": build_s, "structure_bytes": brs.nbytes,
+               "peak_bytes_over_base": peak, "base_bytes": base,
+               **brs_mod.work_metrics(brs),
+               "sources": sources,
+               "depth_first_source": int(lv[lv != self.blest.UNREACHED].max()),
+               "brs_ms": per, "brs_median_ms": med,
+               "blest_ms": per_b, "blest_median_ms": med_b,
+               "brs_over_blest": med / med_b,
+               "scatter_zero_marks_ms": scatter}
+        self.brs_rows.append(row)
+        log(f"brs {row}")
+        del brs, fused
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    def pad_scatter_ms(self, brs):
+        """One level's scatter-max of zero marks over every slot, with the
+        padding slots' rows at ``n_pad`` (repro's ``row_ids``) and spread
+        as ``bfs_brs`` spreads them (``4 * slot % n_ext``): the cost of
+        the deviation's alternative."""
+        torch = self.torch
+        rows = brs.row_ids
+        spread = (4 * torch.arange(brs.max_slices, device=self.dev)
+                  ) % brs.n_ext
+        out = {}
+        for name, idx in (("rows_n_pad", rows), ("rows_spread", torch.where(
+                rows == brs.n_pad, spread, rows))):
+            idx = idx.reshape(-1).to(torch.int64)
+            marks = torch.zeros(idx.numel(), dtype=torch.uint8,
+                                device=self.dev)
+            v = torch.zeros(brs.n_ext, dtype=torch.uint8, device=self.dev)
+            out[name] = self.time_ms(
+                lambda: v.scatter_reduce_(0, idx, marks, "amax"), iters=3,
+                warmup=1)
+            del idx, marks
+        return out
+
+    def brs_families(self):
+        """``bfs_brs`` on the card equal to the same function on the CPU
+        (and to the oracle) on every family at scale 10, two sources each."""
+        brs_mod = self.brs
+        for family in self.graphs.FAMILIES:
+            g = self.graphs.make(family, 10)
+            bv = self.build_bvss(g, self.BvssConfig())
+            on_card = brs_mod.build_brs(bv, device=self.dev)
+            on_cpu = brs_mod.build_brs(bv, device="cpu")
+            for s in self.sources(g, 2, seed=9):
+                got = brs_mod.bfs_brs(on_card, int(s)).cpu()
+                if not self.torch.equal(got, brs_mod.bfs_brs(on_cpu, int(s))):
+                    fail(f"{family}-10: bfs_brs from {s} differs from the "
+                         "CPU's")
+                if not (got.numpy() == self.ref_bfs.bfs_levels(g, int(s))
+                        ).all():
+                    fail(f"{family}-10: bfs_brs from {s} differs from the "
+                         "oracle")
+        log("brs: every family at scale 10 equal on the card and the CPU")
+
+    def brs_phase(self, kron, road, scale: int):
+        """Phase 8 (a): BRS on road (phase 4's RCM Blest) and on
+        kron-``scale`` (natural order, as phase 7); kron's BVSS of phase 3
+        (natural order) must be refused by the budget check where it is
+        kron-20 or larger (102 GiB at kron-20)."""
+        try:
+            built = self.brs.build_brs(kron[0].bvss, device=self.dev)
+        except ValueError as err:
+            log(f"brs {kron[2]}: refused: {err}")
+        else:
+            log(f"brs {kron[2]}: built, {built.nbytes} bytes")
+            if kron[0].graph.n >= 1 << 20:
+                fail(f"{kron[2]}: build_brs did not refuse a structure over "
+                     "the card's memory")
+            del built
+        b, g, label, _ = road
+        self.brs_cell(g, label, b, b.stats.algorithm)
+        g = self.graphs.make("kron", scale, seed=0)
+        b = self.Blest.preprocess(g, reorder="natural", device=self.dev)
+        self.brs_cell(g, f"kron-{scale}", b, "natural")
+        del b, g
+        self.brs_families()
+
+    # ----------------------------- phase 8 (b): Fig. 5 on the card --
+    def switching_phase(self, graph):
+        """``per_level_analysis`` on a phase-3/4 graph from its first
+        source (in BVSS ids)."""
+        b, _, label, sources = graph
+        a = self.switching.per_level_analysis(b.bd, int(b.perm[sources[0]]))
+        rows = a["rows"]
+        row = {"graph": label, "source": int(sources[0]),
+               "levels": len(rows),
+               "misclassification_rate": a["misclassification_rate"],
+               "speedup_optimal_over_blest": a["speedup_optimal_over_blest"],
+               "blest_modes": {m: sum(r["blest_mode"] == m for r in rows)
+                               for m in ("dense", "queued")},
+               **{f"{k}_total_s": sum(r[f"{k}_s"] for r in rows)
+                  for k in ("top_down", "bottom_up", "blest", "optimal")}}
+        self.switching_rows.append(row)
+        log(f"switching {row}")
+
+    # -------------------- phase 8 (c): launchers and examples on the card --
+    def launch(self, runs):
+        """Subprocesses from the checkout's root, all started at once, each
+        ``(name, argv, check)``; each must exit 0 within LAUNCH_TIMEOUT
+        (a thread per process waits for it and kills it at the limit).
+        Each one's wall seconds, from the common start to its exit, and
+        its last line are recorded, with what ``check(lines)`` returns."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        t0 = time.perf_counter()
+
+        def wait(proc):
+            try:
+                out, err = proc.communicate(timeout=LAUNCH_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                return None
+            return out, err, time.perf_counter() - t0
+
+        procs = [subprocess.Popen([sys.executable] + argv, cwd=ROOT, env=env,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for _, argv, _ in runs]
+        with ThreadPoolExecutor(len(procs)) as pool:
+            outs = list(pool.map(wait, procs))
+        for (name, argv, check), proc, done in zip(runs, procs, outs):
+            if done is None:
+                fail(f"{name}: no exit within {LAUNCH_TIMEOUT} s")
+            out, err, wall = done
+            if proc.returncode != 0:
+                fail(f"{name}: exit code {proc.returncode}: "
+                     f"{err.strip()[-2000:]}")
+            lines = out.strip().splitlines()
+            row = {"name": name,
+                   "argv": argv[1:] if argv[0] == "-m" else argv,
+                   "rc": proc.returncode, "wall_s": wall,
+                   "last_line": lines[-1] if lines else ""}
+            if check is not None:
+                row.update(check(lines))
+            self.launch_rows.append(row)
+            log(f"launch {row}")
+
+    def served(self, health):
+        """The check of a serve run: a verified line, and a health file
+        that parses and shows a drained engine."""
+        def check(lines):
+            self.verified(lines)
+            snap = json.loads(health.read_text())
+            if snap["in_flight"] or snap["building"]:
+                fail(f"{health.name}: a drained engine's health shows "
+                     f"work: {snap}")
+            served = [ln for ln in lines if ln.startswith("served")]
+            return {"served": served[0] if served else "",
+                    "health": {k: snap[k] for k in (
+                        "rejected", "expired", "cancelled", "build_failures",
+                        "degraded", "device_bytes")}}
+        return check
+
+    @staticmethod
+    def verified(lines):
+        if not any(ln.startswith("verified") for ln in lines):
+            fail(f"no verified line in {lines[-3:]}")
+        return {}
+
+    def launch_phase(self, cap: int):
+        """Phase 8 (c): each launcher run of LAUNCHES in turn (scales
+        capped at ``cap``) with its --verify (the serve runs with a health
+        file that is then parsed), then the four examples of examples/port
+        together."""
+        health_dir = ROOT / "build" / "chip_smoke"
+        health_dir.mkdir(parents=True, exist_ok=True)
+        for name, module, args in LAUNCHES:
+            args = re.sub(r"--scale (\d+)",
+                          lambda m: f"--scale {min(int(m[1]), cap)}",
+                          args).split()
+            # repro's launcher checks no triangle count either
+            check = None if "triangles" in args else self.verified
+            if module.endswith("serve_bfs"):
+                health = health_dir / f"health-{name.split()[1]}.json"
+                args += ["--health-json", str(health)]
+                check = self.served(health)
+            self.launch([(name, ["-m", module] + args, check)])
+        # the examples are small: all four at once
+        self.launch([(f"example {name}", [f"examples/port/{name}.py"],
+                      lambda lines: {} if lines else fail(
+                          "an example printed nothing"))
+                     for name in EXAMPLES])
+
     def bound(self, nbytes, nops, peak=ALU_OPS_PER_S):
         """The least time for ``nbytes`` moved once and ``nops`` operations
         at ``peak``, and which of the two sets it."""
@@ -2158,7 +2467,7 @@ def nvidia_smi() -> str:
 
 
 def run(smoke: Smoke, kron_scale: int, road_scale: int,
-        analytics_scale: int = 17) -> list[dict]:
+        analytics_scale: int = 17, launch_scale: int = 20) -> list[dict]:
     ops, graphs, Blest = smoke.ops, smoke.graphs, smoke.Blest
 
     log("phase 2: kernels against their plain versions over the shape pool")
@@ -2245,7 +2554,6 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int,
                                      serve_kron_road))
         if row["name"] in smoke.road_kernels:
             row["road"] = smoke.road_kernels[row["name"]]
-    del kron, road
     gc.collect()
     if smoke.dev.type == "cuda":
         smoke.torch.cuda.empty_cache()
@@ -2254,6 +2562,24 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int,
     t0 = time.perf_counter()
     kernel_rows += smoke.analytics_phase(analytics_scale)
     log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 8: BRS on {road[2]} and kron-{analytics_scale}, Fig. 5 on "
+        f"{kron[2]} and {road[2]}, launchers and examples")
+    t0 = time.perf_counter()
+    smoke.brs_phase(kron, road, analytics_scale)
+    log(f"phase 8 (a) took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    smoke.switching_phase(kron)
+    smoke.switching_phase(road)
+    log(f"phase 8 (b) took {time.perf_counter() - t1:.1f} s")
+    del kron, road
+    gc.collect()
+    if smoke.dev.type == "cuda":
+        smoke.torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    smoke.launch_phase(launch_scale)
+    log(f"phase 8 (c) took {time.perf_counter() - t1:.1f} s")
+    log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
     return kernel_rows
 
 
@@ -2262,6 +2588,8 @@ def main(argv=None) -> None:
     ap.add_argument("--kron-scale", type=int, default=22)
     ap.add_argument("--road-scale", type=int, default=20)
     ap.add_argument("--analytics-scale", type=int, default=17)
+    ap.add_argument("--launch-scale", type=int, default=20,
+                    help="cap on the scales of phase 8's launcher runs")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -2285,13 +2613,16 @@ def main(argv=None) -> None:
 
     smoke = Smoke(torch.device("cuda"))
     kernel_rows = run(smoke, args.kron_scale, args.road_scale,
-                      args.analytics_scale)
+                      args.analytics_scale, args.launch_scale)
     print(smi)
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"bfs": smoke.bfs_rows}))
     print(json.dumps({"msbfs": smoke.ms_rows}))
     print(json.dumps({"serve": smoke.serve_rows}))
     print(json.dumps({"analytics": smoke.analytics_rows}))
+    print(json.dumps({"brs": smoke.brs_rows}))
+    print(json.dumps({"switching": smoke.switching_rows}))
+    print(json.dumps({"launch": smoke.launch_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

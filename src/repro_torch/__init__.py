@@ -9,6 +9,8 @@ Entry points run on the CUDA device unless the caller passes
 hand-written CUDA kernel for a CUDA tensor, its plain PyTorch version for a
 CPU tensor).  Ported so far: single- and multi-source BLEST BFS and
 closeness through :class:`repro_torch.core.pipeline.Blest`, the packed
-multi-source layout (``core/msbfs_packed``), and the serve engine
-(:class:`repro_torch.serve.bfs_engine.BfsEngine`).
+multi-source layout (``core/msbfs_packed``), the serve engine
+(:class:`repro_torch.serve.bfs_engine.BfsEngine`) with the analytics
+kinds, the BRS baseline (``core/brs_baseline``), and the launchers
+(``python -m repro_torch.launch.bfs`` / ``.serve_bfs``).
 """

@@ -13,7 +13,8 @@ paper's preprocessing probe (3 BFS runs from random sources with and without
 switching) that decides whether switching is enabled at all for a graph;
 ``probe_switching_benefit_serve`` is its serve-aware twin, timing the
 kappa-lane runner of the serve engine instead of the single-source proxy
-(DESIGN.md §11.3).
+(DESIGN.md §11.3); ``per_level_analysis`` is the paper's Fig. 5 data, each
+level timed under forced top-down, forced bottom-up and the policy.
 """
 from __future__ import annotations
 
@@ -196,3 +197,51 @@ def probe_switching_benefit_serve(
         time_mma=t_mma,
         dense_layout=layout,
     )
+
+
+def per_level_analysis(bd: blest.BvssDevice, src: int, eta: float = ETA_DEFAULT
+                       ) -> dict:
+    """Fig. 5 data: per-level times in forced-queued (Top-Down), forced-dense
+    (Bottom-Up), the Eq.(6) policy (BLEST), and the oracle (Optimal =
+    min(TD, BU) per level), plus the misclassification rate.
+
+    Three instrumented :class:`~repro_torch.core.blest.BucketedBfs` runs
+    from ``src`` (in ``bd``'s ids); each level's time is taken after a
+    device synchronize, so it is the level's device work plus its host
+    loop.  Each policy first runs once untimed, so that none of the three
+    pays the one-time costs of a first run (allocator growth, library
+    loads) that the others do not."""
+    traces = []
+    for e in (None, float("inf"), eta):
+        runner = blest.BucketedBfs(bd, eta=e, instrument=True)
+        runner(src)  # warm-up; the next call's trace replaces its own
+        runner(src)
+        traces.append(runner.trace)
+    td_trace, bu_trace, pol_trace = traces
+
+    levels = min(len(td_trace), len(bu_trace), len(pol_trace))
+    rows, mis = [], 0
+    for k in range(levels):
+        t_td = td_trace[k]["time_s"]
+        t_bu = bu_trace[k]["time_s"]
+        opt_mode = "queued" if t_td <= t_bu else "dense"
+        chosen = pol_trace[k]["mode"]
+        if chosen != opt_mode:
+            mis += 1
+        rows.append({
+            "level": k + 1,
+            "top_down_s": t_td,
+            "bottom_up_s": t_bu,
+            "blest_s": pol_trace[k]["time_s"],
+            "blest_mode": chosen,
+            "optimal_mode": opt_mode,
+            "optimal_s": min(t_td, t_bu),
+        })
+    total_blest = sum(r["blest_s"] for r in rows)
+    total_opt = sum(r["optimal_s"] for r in rows)
+    return {
+        "rows": rows,
+        "misclassification_rate": mis / levels if levels else 0.0,
+        "speedup_optimal_over_blest": (
+            total_blest / total_opt if total_opt > 0 else 1.0),
+    }

@@ -1810,6 +1810,9 @@ class BfsEngine:
         # finished lane of that kind and dropped with the cache entry
         # (live sessions hold their own reference, like the substrate)
         self._wl_state: dict[str, dict[str, object]] = {}
+        # kind -> (workload, whether its graph_state takes device=),
+        # read once per workload object
+        self._wl_takes_device: dict[str, tuple[Workload, bool]] = {}
         self._queues: OrderedDict[str, _TenantQueue] = OrderedDict()
         # artifacts whose build landed but whose session has not opened
         # yet: held by reference so cache pressure between install and
@@ -2579,10 +2582,17 @@ class BfsEngine:
         """Memoized ``Workload.graph_state`` for ``graph`` (§15.2), on this
         engine's device: shared across sessions while the cache entry
         lives, rebuilt lazily after eviction (a live session keeps its own
-        reference, see ``_GraphSession.graph_states``)."""
+        reference, see ``_GraphSession.graph_states``).  A hook written to
+        ``repro``'s signature, ``graph_state(graph)``, is called without
+        the device."""
         per = self._wl_state.setdefault(name, {})
         if wl.kind not in per:
-            per[wl.kind] = wl.graph_state(graph, device=self.device)
+            seen = self._wl_takes_device.get(wl.kind)
+            if seen is None or seen[0] is not wl:
+                seen = self._wl_takes_device[wl.kind] = (
+                    wl, workloads_mod.graph_state_takes_device(wl))
+            per[wl.kind] = (wl.graph_state(graph, device=self.device)
+                            if seen[1] else wl.graph_state(graph))
         return per[wl.kind]
 
     def _policy_active(self, art: GraphArtifacts) -> bool:

@@ -31,8 +31,12 @@ component labels) return it from this hook and the engine memoizes the
 result alongside the graph's cached artifacts — built lazily on the first
 finished lane of that kind, dropped when the graph is evicted, pinned by
 live sessions exactly like the substrate itself.  ``extract`` reads it
-back as ``lane.graph_state``.  One deviation from ``repro.serve``: the
-hook is handed the engine's device, since the port's state lives on it.
+back as ``lane.graph_state``.  The port's built-in hooks take the
+engine's device as well (``graph_state(graph, *, device)``), since their
+state lives on it; the engine accepts both signatures: it passes
+``device=`` to a hook that names a ``device`` keyword or takes ``**kwargs``
+(:func:`graph_state_takes_device`), and calls a hook written to
+``repro.serve``'s ``graph_state(graph)`` with the graph alone.
 
 Built-ins registered in every engine's default registry:
 
@@ -57,6 +61,7 @@ every engine built afterwards.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import weakref
 
 import numpy as np
@@ -175,7 +180,8 @@ class Workload:
         engine for the lifetime of the graph's cache entry (live sessions
         keep their own reference across eviction, like the substrate), and
         handed to ``extract`` as ``lane.graph_state``.  ``device`` is the
-        engine's (``repro``'s hook takes the graph alone)."""
+        engine's; a hook may also take the graph alone, as ``repro``'s
+        does (:func:`graph_state_takes_device`)."""
         return None
 
     @property
@@ -327,6 +333,17 @@ BUILTIN_WORKLOADS = (BfsWorkload(), ClosenessWorkload(), DistanceWorkload(),
                      TpvWorkload())
 
 _REGISTRY: dict[str, Workload] = {w.kind: w for w in BUILTIN_WORKLOADS}
+
+
+def graph_state_takes_device(workload: Workload) -> bool:
+    """Whether ``workload.graph_state`` takes the engine's device: it names
+    a ``device`` keyword or takes ``**kwargs``.  A hook written to
+    ``repro.serve``'s signature, ``graph_state(self, graph)``, does not."""
+    params = inspect.signature(workload.graph_state).parameters.values()
+    return any(p.kind is p.VAR_KEYWORD
+               or (p.name == "device" and p.kind in (p.KEYWORD_ONLY,
+                                                     p.POSITIONAL_OR_KEYWORD))
+               for p in params)
 
 
 def register(workload: Workload, *, replace: bool = False) -> None:
