@@ -270,6 +270,15 @@ LAUNCHES = (
      "--layout mma --switching on"),
 )
 EXAMPLES = ("quickstart", "multi_source_bfs", "bfs_service", "graph_analytics")
+# phase 9: multi-device BLEST over MESH_SLOTS slots on the one card
+MESH_SLOTS = 4
+MESH_KERNELS = ("pull_ss", "frontier_sweep", "pull_ms",
+                "pull_scatter_ms_packed")
+MESH_KAPPA = 16              # (a): closeness_source_parallel's batch
+MESH_SERVE_SCALE = 20        # (b): kron scale of the mesh engines
+MESH_SERVE_KAPPA = 64
+MESH_SERVE_SOURCES = 64      # x 4 kinds = 256 tickets
+MESH_LAUNCH_SCALE = 13       # (c): the mesh serve launcher's scale
 
 
 def fail(msg: str) -> None:
@@ -298,9 +307,10 @@ class Smoke:
         import numpy as np
         import torch
 
-        from repro_torch.core import (blest, brs_baseline, components, mis,
-                                      msbfs, msbfs_packed, ref_bfs, switching,
-                                      triangles, window)
+        from repro_torch.core import (blest, brs_baseline, components,
+                                      distributed, mis, msbfs, msbfs_packed,
+                                      ref_bfs, reorder, switching, triangles,
+                                      window)
         from repro_torch.core.bvss import BvssConfig, build_bvss
         from repro_torch.core.graph import Graph, from_edges
         from repro_torch.core.pipeline import Blest
@@ -311,7 +321,7 @@ class Smoke:
         from repro_torch.kernels import pull_mma_ms_packed as mma
         from repro_torch.kernels import pull_ms_packed_queued as queued
         from repro_torch.kernels import pull_scatter_ms_packed as fused
-        from repro_torch.serve import bfs_engine, workloads
+        from repro_torch.serve import bfs_engine, mesh, workloads
 
         self.np, self.torch, self.dev, self.fused = np, torch, dev, fused
         self.packed_vss_per_block = pull_ms_packed.packed_vss_per_block
@@ -325,6 +335,7 @@ class Smoke:
         self.components, self.mis, self.triangles = components, mis, triangles
         self.from_edges = from_edges
         self.brs, self.switching = brs_baseline, switching
+        self.distributed, self.mesh, self.reorder = distributed, mesh, reorder
         self.windows_run = 0      # LevelWindow.run calls, all phases
         self.window_pools: list[int] = []  # each capture's pool bytes
         self.instrument_windows()
@@ -412,6 +423,8 @@ class Smoke:
         self.brs_rows: list[dict] = []
         self.switching_rows: list[dict] = []
         self.launch_rows: list[dict] = []
+        self.mesh_rows: list[dict] = []
+        self.ms_closeness: dict = {}  # label -> (bd sources, far, reach)
         self.state_builds: list[tuple] = []  # (graph, kind, seconds)
         self.instrument_state_builds()
         self.family_graphs: dict = {}  # scale-10 graphs, one object each
@@ -1104,8 +1117,9 @@ class Smoke:
         np, ms = self.np, self.msbfs
         srcs = self.sources(g, MS_SOURCES, seed=4)
         lv, levels = self.msbfs_checked(b, g, srcs, label, range(len(srcs)))
-        want, _, _ = self.closeness_from_levels(lv, g.n)
+        want, far, reach = self.closeness_from_levels(lv, g.n)
         bd_srcs = b.perm[srcs].astype(np.int32)
+        self.ms_closeness[label] = (bd_srcs, far, reach)  # phase 9 (a)
         for bucketed in (False, True):
             for norm in ("classic", "component"):
                 cc, dt = self.timed(lambda: b.closeness(
@@ -2443,6 +2457,307 @@ class Smoke:
                           "an example printed nothing"))
                      for name in EXAMPLES])
 
+    # ------------------ phase 9: multi-device BLEST, slots on the card --
+    def slots(self):
+        return [self.dev] * MESH_SLOTS
+
+    def distributed_phase(self, kron, road):
+        """Phase 9 (a): ``core/distributed`` over MESH_SLOTS slots on the
+        card.  ``bfs_row_parallel`` and ``bfs_graph_parallel`` on phase 3's
+        kron BVSS (two sources) and phase 4's road (one), equal to the
+        oracle levels those phases hold; ``closeness_source_parallel`` over
+        phase 3b's sources at kappa MESH_KAPPA, far and reach equal to the
+        closeness of phase 3b's lanes."""
+        np, dist, slots = self.np, self.distributed, self.slots()
+        for (b, g, label, srcs), n_src in ((kron, 2), (road, 1)):
+            rs, build_s = self.timed(lambda: dist.build_row_sharded(
+                b.bvss, MESH_SLOTS, slots))
+            row = {"graph": label, "path": "distributed",
+                   "slots": MESH_SLOTS, "row_shard_build_s": build_s,
+                   "shard_bytes": rs.shard_bytes, "nv_max": rs.nv_max,
+                   "num_vss": b.bd.num_vss, "sources": []}
+            for s in srcs[:n_src]:
+                want, src = self.oracle[label, int(s)], int(b.perm[s])
+                got = {}
+                for name, fn in (
+                        ("row", lambda: dist.bfs_row_parallel(rs, src, slots)),
+                        ("graph", lambda: dist.bfs_graph_parallel(
+                            b.bd, src, slots))):
+                    lv, dt = self.timed(fn)
+                    if not np.array_equal(lv[b.perm], want):
+                        fail(f"{label}: bfs_{name}_parallel from {s} over "
+                             f"{MESH_SLOTS} slots differs from the oracle")
+                    got[f"{name}_parallel_ms"] = dt * 1e3
+                row["sources"].append({"source": int(s), **got})
+            self.mesh_rows.append(row)
+            log(f"mesh {row}")
+            del rs
+        b, g, label, _ = kron
+        bd_srcs, far, reach = self.ms_closeness[label]
+        (cf, cr), dt = self.timed(lambda: dist.closeness_source_parallel(
+            b.bd, slots, kappa=MESH_KAPPA, sources=bd_srcs))
+        if not (np.array_equal(cf[b.perm], far)
+                and np.array_equal(cr[b.perm], reach)):
+            fail(f"{label}: closeness_source_parallel differs from the "
+                 "closeness of phase 3b's lanes")
+        row = {"graph": label, "path": "closeness_source_parallel",
+               "slots": MESH_SLOTS, "kappa": MESH_KAPPA,
+               "sources": len(bd_srcs), "ms": dt * 1e3}
+        self.mesh_rows.append(row)
+        log(f"mesh {row}")
+
+    def same_result(self, label, t, ref):
+        """One mesh ticket against the single-device engine's ticket of
+        the same request (megatick 1): what ``serve_check`` compares.  A
+        distance lane stops at its target, so only the distance is
+        compared there: inside a window it runs on to the window's end."""
+        np = self.np
+        a, b = t.result(), ref.result()
+        fields = (("distance",) if a.kind == "distance"
+                  else ("far", "reach", "closeness"))
+        ok = (a.kind, a.source) == (b.kind, b.source) and all(
+            getattr(a, f) == getattr(b, f) for f in fields)
+        ok = ok and ((a.levels is None and b.levels is None)
+                     or np.array_equal(a.levels, b.levels))
+        if not ok:
+            fail(f"{label}: mesh ticket {int(t)} ({a.kind} from {a.source}) "
+                 "differs from the single-device engine's")
+
+    def mesh_engine(self, label, g, specs, refs, mode, megatick, budget):
+        """One mesh engine over MESH_SLOTS slots on ``g``: build timed
+        apart, the stream at once, every ticket against ``refs``."""
+        kw = dict(kappa=MESH_SERVE_KAPPA, layout="packed", reorder="natural",
+                  megatick=megatick, device=self.dev,
+                  mesh=self.mesh.EngineMesh(self.slots()))
+        if mode == "graph":
+            # switching on with eta 0 would queue every level: a sharded
+            # session must run them all dense
+            kw.update(switching="on", eta=0.0, device_budget=budget)
+        else:
+            kw.update(switching="off")
+        eng = self.bfs_engine.BfsEngine(**kw)
+        eng.register_graph(label, g)
+        art, build_s = self.timed(lambda: eng.cache.get(label))
+        t0 = time.perf_counter()
+        tickets = [eng.submit(label, src, kind, target=tgt)
+                   for kind, src, tgt in specs]
+        eng.run()
+        self.sync()
+        wall = time.perf_counter() - t0
+        for t, ref in zip(tickets, refs):
+            if t.state != "DONE":
+                fail(f"{label}: mesh ticket {int(t)} ended {t.state}: "
+                     f"{t.error}")
+            self.same_result(label, t, ref)
+            if (label, t.query.source) in self.oracle:
+                self.serve_oracle(label, t)
+        st, per = eng.stats, eng.cache.per_device()
+        if sorted(per) != list(range(MESH_SLOTS)):
+            fail(f"{label} {mode}: slot bytes {per}")
+        if mode == "graph":
+            if art.sharded is None or st["levels_queued"]:
+                fail(f"{label}: not sharded, or {st['levels_queued']} "
+                     "queued levels on the sharded engine")
+            if any(v > budget for v in per.values()):
+                fail(f"{label}: slot bytes {per} over the budget {budget}")
+            reads = eng._runners[label].level_reads
+        else:
+            if art.replicas is None or len(art.replicas) != MESH_SLOTS:
+                fail(f"{label}: not replicated over {MESH_SLOTS} slots")
+            reads = 0
+        if megatick > 1 and st["megaticks"] == 0:
+            fail(f"{label} {mode}: no megatick window ran a level")
+        row = {"graph": label, "path": f"serve {mode}-parallel",
+               "slots": MESH_SLOTS, "kappa": MESH_SERVE_KAPPA,
+               "megatick": megatick, "tickets": len(tickets),
+               "build_s": build_s, "wall_s": wall,
+               "tickets_per_s": len(tickets) / wall,
+               "levels": st["levels"], "levels_dense": st["levels_dense"],
+               "levels_queued": st["levels_queued"],
+               "megaticks": st["megaticks"], "host_syncs": st["host_syncs"],
+               "sharded_level_reads": reads,
+               "syncs_per_level": (st["host_syncs"] + reads) / st["levels"],
+               "slot_bytes": per, "budget": budget}
+        self.mesh_rows.append(row)
+        log(f"mesh {row}")
+        del eng, tickets
+        return art
+
+    def mesh_level_cost(self, label, sharded, single):
+        """ms of one dense packed level of the sharded runner (four slots)
+        and of the single-device runner at the same kappa, from the same
+        state three levels in, and of the level's exchange alone: the
+        concatenation of the slots' diff tiles and the sum of their
+        counts."""
+        torch, np, mesh = self.torch, self.np, self.mesh
+        kappa = MESH_SERVE_KAPPA
+        src = (np.arange(kappa) * 7919 % single.bd.n).astype(np.int32)
+        rs = sharded.sharded.rs
+        runners = {
+            "sharded": mesh.ShardedLaneRunner(sharded.sharded, sharded.bd,
+                                              kappa, layout="packed"),
+            "single": self.bfs_engine._LaneRunner(single.bd, kappa,
+                                                  layout="packed")}
+        row = {"graph": label, "path": "dense level", "kappa": kappa,
+               "slots": MESH_SLOTS}
+        states = {}
+        for name, r in runners.items():
+            st = r.reseed(r.init_state(), np.ones(kappa, bool),
+                          sharded.perm[src] if name == "sharded"
+                          else single.perm[src], 0)
+            for ell in (1, 2, 3):
+                st, new = r.level(st, ell)
+            states[name] = (st, new)
+            row[f"{name}_ms"] = self.time_ms(lambda: r.level(st, 4),
+                                             iters=10)
+        if not self.torch.equal(states["sharded"][1].cpu(),
+                                states["single"][1].cpu()):
+            fail(f"{label}: sharded and single-device levels differ")
+        st = states["sharded"][0]
+        tiles = [v[: rs.rows_per].reshape(rs.sets_per, rs.sigma, -1)
+                 for v in st.v]
+        news = [torch.zeros(kappa, dtype=torch.int64, device=self.dev)
+                for _ in st.v]
+        zero = torch.zeros_like(tiles[0][:1])
+        row["exchange_ms"] = self.time_ms(
+            lambda: (torch.cat(tiles + [zero]), sum(news)), iters=10)
+        row["exchange_share"] = row["exchange_ms"] / row["sharded_ms"]
+        self.mesh_rows.append(row)
+        log(f"mesh {row}")
+
+    def matrix_graphs(self):
+        """tests/workload_matrix.py's three serving-regime graphs."""
+        graphs = self.graphs
+        return {"ksym": graphs.make("kron", 6, seed=0).symmetrized(),
+                "kdir": graphs.make("kron", 5, seed=1),
+                "ring": graphs.make("ring", 5)}
+
+    def projected(self, g, reorder=None):
+        cfg = self.BvssConfig()
+        rr = self.reorder.reorder(g, sigma=cfg.sigma, force=reorder)
+        return self.mesh.projected_device_bytes(
+            self.build_bvss(g.permuted(rr.perm), cfg))
+
+    def mesh_matrix(self):
+        """The 8 MESH_MATRIX cells (byteplane / packed x source / graph x
+        megatick 1 / 64) on the matrix graphs over the card's slots, all
+        seven kinds, each ticket through verify_result."""
+        np = self.np
+        duo = self.matrix_graphs()
+        budget = min(self.projected(g) for g in duo.values()) - 1
+        cells = 0
+        for layout in ("byteplane", "packed"):
+            for mode in ("source", "graph"):
+                for mt in (1, 64):
+                    eng = self.bfs_engine.BfsEngine(
+                        layout=layout, switching="off", megatick=mt,
+                        kappa=32, device=self.dev,
+                        mesh=self.mesh.EngineMesh(self.slots()),
+                        device_budget=budget if mode == "graph" else None)
+                    rng = np.random.default_rng([cells, 13])
+                    ts = []
+                    for name, g in duo.items():
+                        eng.register_graph(name, g)
+                        for kind in ALL_KINDS:
+                            for _ in range(2):
+                                tgt = (int(rng.integers(0, g.n))
+                                       if kind == "distance" else None)
+                                ts.append((eng.submit(
+                                    name, int(rng.integers(0, g.n)), kind,
+                                    target=tgt), g))
+                    eng.run()
+                    for t, g in ts:
+                        try:
+                            self.workloads.verify_result(
+                                t.result(), t.query,
+                                self.ref_bfs.bfs_levels(g, t.query.source),
+                                unreached=self.ref_bfs.UNREACHED, graph=g)
+                        except AssertionError as e:
+                            fail(f"mesh cell {layout}/{mode}/{mt}: {e}")
+                    for name in duo:
+                        art = eng.cache.peek(name)
+                        if art is not None and (
+                                (art.sharded is None) == (mode == "graph")):
+                            fail(f"mesh cell {layout}/{mode}/{mt}: {name} "
+                                 "placed in the other mode")
+                    cells += 1
+        log(f"{cells} mesh matrix cells ok")
+
+    def mesh_serve_phase(self, scale):
+        """Phase 9 (b): a kron-``scale`` stream (natural order) through a
+        single-device engine, then through mesh engines over the slots,
+        source-parallel and graph-parallel (a budget one byte under the
+        graph's projection), each at megatick 1 and 64: every ticket equal
+        to the single-device engine's; then one dense level of either
+        runner; then the matrix cells."""
+        g = self.graphs.make("kron", scale, seed=0)
+        label = f"kron-{scale}"
+        self.graphs_n[label] = g.n
+        specs = self.serve_specs(g, [], MESH_SERVE_SOURCES, seed=12)
+        for _, src, _ in specs[: 2 * len(SERVE_KINDS): len(SERVE_KINDS)]:
+            self.oracle[label, src] = self.ref_bfs.bfs_levels(g, src)
+        ref = self.bfs_engine.BfsEngine(
+            kappa=MESH_SERVE_KAPPA, layout="packed", switching="off",
+            reorder="natural", device=self.dev)
+        ref.register_graph(label, g)
+        refs = [ref.submit(label, src, kind, target=tgt)
+                for kind, src, tgt in specs]
+        ref.run()
+        single = ref.cache.get(label)
+        budget = self.projected(g, "natural") - 1
+        sharded = None
+        for mode in ("source", "graph"):
+            for mt in (1, 64):
+                art = self.mesh_engine(label, g, specs, refs, mode, mt,
+                                       budget)
+                if mode == "graph":
+                    sharded = art
+        self.mesh_level_cost(label, sharded, single)
+        del ref, refs, single, sharded, art
+        gc.collect()
+        self.mesh_matrix()
+
+    def mesh_launch_phase(self):
+        """Phase 9 (c): the mesh serve launcher (4 slots on the card, a
+        budget one byte under kron's projection at MESH_LAUNCH_SCALE) and
+        the closeness example over 4 slots, as subprocesses that must exit
+        0; the launcher's health file must give every slot its bytes,
+        each under the budget."""
+        g = self.graphs.make("kron", MESH_LAUNCH_SCALE, seed=0)
+        budget = self.projected(g) - 1
+        health = ROOT / "build" / "chip_smoke" / "health-mesh.json"
+        health.parent.mkdir(parents=True, exist_ok=True)
+        served = self.served(health)
+
+        def check_serve(lines):
+            out = served(lines)
+            per = out["health"]["device_bytes"]
+            if (sorted(per) != [str(k) for k in range(MESH_SLOTS)]
+                    or any(v > budget for v in per.values())):
+                fail(f"serve mesh: slot bytes {per}, budget {budget}")
+            if not any(ln.startswith("mesh: EngineMesh(4 devices")
+                       for ln in lines):
+                fail("serve mesh: no mesh line")
+            return {**out, "budget": budget}
+
+        def check_example(lines):
+            if not any("source-parallel over 4 device slots matches" in ln
+                       for ln in lines):
+                fail(f"closeness example: {lines[-2:]}")
+            return {}
+
+        self.launch([
+            ("serve mesh", ["-m", "repro_torch.launch.serve_bfs", "--mesh",
+                            "--devices", str(MESH_SLOTS), "--device",
+                            "cuda:0", "--device-budget-mb",
+                            repr((budget) / (1 << 20)), "--families",
+                            "kron,road", "--scale", str(MESH_LAUNCH_SCALE),
+                            "--verify", "--health-json", str(health)],
+             check_serve),
+            ("example closeness_centrality",
+             ["examples/port/closeness_centrality.py", "--devices",
+              str(MESH_SLOTS)], check_example)])
+
     def bound(self, nbytes, nops, peak=ALU_OPS_PER_S):
         """The least time for ``nbytes`` moved once and ``nops`` operations
         at ``peak``, and which of the two sets it."""
@@ -2467,7 +2782,8 @@ def nvidia_smi() -> str:
 
 
 def run(smoke: Smoke, kron_scale: int, road_scale: int,
-        analytics_scale: int = 17, launch_scale: int = 20) -> list[dict]:
+        analytics_scale: int = 17, launch_scale: int = 20,
+        mesh_scale: int = MESH_SERVE_SCALE) -> list[dict]:
     ops, graphs, Blest = smoke.ops, smoke.graphs, smoke.Blest
 
     log("phase 2: kernels against their plain versions over the shape pool")
@@ -2572,7 +2888,6 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int,
     smoke.switching_phase(kron)
     smoke.switching_phase(road)
     log(f"phase 8 (b) took {time.perf_counter() - t1:.1f} s")
-    del kron, road
     gc.collect()
     if smoke.dev.type == "cuda":
         smoke.torch.cuda.empty_cache()
@@ -2580,6 +2895,44 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int,
     smoke.launch_phase(launch_scale)
     log(f"phase 8 (c) took {time.perf_counter() - t1:.1f} s")
     log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 9: multi-device BLEST over {MESH_SLOTS} slots on "
+        f"{smoke.dev}: {kron[2]}, {road[2]}, kron-{mesh_scale} serving")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    smoke.distributed_phase(kron, road)
+    smoke.sync()
+    mesh_counts = ops.launch_counts()
+    missing = [k for k in ("pull_ss", "frontier_sweep", "pull_ms")
+               if mesh_counts[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the distributed path: {missing}")
+    log(f"phase 9 (a) took {time.perf_counter() - t0:.1f} s; launches "
+        f"{mesh_counts}")
+    del kron, road
+    gc.collect()
+    if smoke.dev.type == "cuda":
+        smoke.torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ops.reset_launch_counts()
+    smoke.mesh_serve_phase(mesh_scale)
+    smoke.sync()
+    serve_counts = ops.launch_counts()
+    if serve_counts["pull_scatter_ms_packed"] == 0:
+        fail("pull_scatter_ms_packed never launched on the mesh serve path")
+    log(f"phase 9 (b) took {time.perf_counter() - t1:.1f} s; launches "
+        f"{serve_counts}")
+    t1 = time.perf_counter()
+    smoke.mesh_launch_phase()
+    log(f"phase 9 (c) took {time.perf_counter() - t1:.1f} s")
+    for row in kernel_rows:
+        row["launches_mesh"] = (mesh_counts.get(row["name"], 0)
+                                + serve_counts.get(row["name"], 0))
+    missing = [k for k in MESH_KERNELS if mesh_counts[k] + serve_counts[k]
+               == 0]
+    if missing:
+        fail(f"kernels never launched in phase 9: {missing}")
+    log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
     return kernel_rows
 
 
@@ -2590,6 +2943,8 @@ def main(argv=None) -> None:
     ap.add_argument("--analytics-scale", type=int, default=17)
     ap.add_argument("--launch-scale", type=int, default=20,
                     help="cap on the scales of phase 8's launcher runs")
+    ap.add_argument("--mesh-scale", type=int, default=MESH_SERVE_SCALE,
+                    help="kron scale of phase 9's mesh engines")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -2613,7 +2968,8 @@ def main(argv=None) -> None:
 
     smoke = Smoke(torch.device("cuda"))
     kernel_rows = run(smoke, args.kron_scale, args.road_scale,
-                      args.analytics_scale, args.launch_scale)
+                      args.analytics_scale, args.launch_scale,
+                      args.mesh_scale)
     print(smi)
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"bfs": smoke.bfs_rows}))
@@ -2623,6 +2979,7 @@ def main(argv=None) -> None:
     print(json.dumps({"brs": smoke.brs_rows}))
     print(json.dumps({"switching": smoke.switching_rows}))
     print(json.dumps({"launch": smoke.launch_rows}))
+    print(json.dumps({"mesh": smoke.mesh_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,6 +11,8 @@ CPU tensor).  Ported so far: single- and multi-source BLEST BFS and
 closeness through :class:`repro_torch.core.pipeline.Blest`, the packed
 multi-source layout (``core/msbfs_packed``), the serve engine
 (:class:`repro_torch.serve.bfs_engine.BfsEngine`) with the analytics
-kinds, the BRS baseline (``core/brs_baseline``), and the launchers
-(``python -m repro_torch.launch.bfs`` / ``.serve_bfs``).
+kinds, the BRS baseline (``core/brs_baseline``), multi-device BLEST and
+mesh serving over a group of device slots (``core/distributed``,
+``serve/mesh``), and the launchers (``python -m repro_torch.launch.bfs``
+/ ``.serve_bfs``).
 """

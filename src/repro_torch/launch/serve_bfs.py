@@ -7,12 +7,18 @@ on the CUDA device (``--device cpu`` for the CPU).
         [--kinds bfs,closeness,distance,reach,cc,mis,tpv] \
         [--closeness-frac 0.25] \
         [--cache-mb 64] [--verify] [--scheduler {rr,serial}] \
-        [--switching {auto,on,off}] [--eta 10.0] [--megatick 64]
+        [--switching {auto,on,off}] [--eta 10.0] [--megatick 64] \
+        [--mesh [--devices N] [--device-budget-mb MB]]
 
 The flags and output lines are those of ``repro.launch.serve_bfs``, with
-one flag of the port's own, ``--device``.  Mesh serving (``--mesh``,
-``--devices``, ``--device-budget-mb``) is not ported yet: those flags exit
-with an error naming ROADMAP.md queue 1 step 8.
+one flag of the port's own, ``--device``.  ``--mesh`` / ``--devices N``
+serve through the DESIGN.md §17 slot group
+(:class:`repro_torch.serve.mesh.EngineMesh`): source-parallel replication
+by default, row-sharded graph-parallel artifacts for graphs over
+``--device-budget-mb``.  The slots are the first N CUDA devices, or, with
+``--device D``, N slots on D (``--mesh --devices 4 --device cpu`` stands
+for ``repro``'s four forced host devices; ``--device cuda:0`` puts four
+slots on one card).
 
 Registers one graph per family, submits a randomly interleaved stream of
 requests, drains the engine, and reports throughput, per-request latency
@@ -179,14 +185,18 @@ def main(argv=None) -> None:
                          "mid-stream (§16.2 client-abandonment demo); "
                          "default 0")
     ap.add_argument("--mesh", action="store_true",
-                    help="serve through a device mesh (DESIGN.md §17); not "
-                         "ported yet (ROADMAP.md queue 1 step 8)")
+                    help="serve through a device mesh (DESIGN.md §17): "
+                         "source-parallel replication across the group, "
+                         "row-sharded graph-parallel artifacts for graphs "
+                         "over --device-budget-mb")
     ap.add_argument("--devices", type=int, default=None,
-                    help="devices in the mesh; not ported yet (ROADMAP.md "
-                         "queue 1 step 8)")
+                    help="slots in the mesh (default: every CUDA device; "
+                         "with --device D, N slots on D, default 1)")
     ap.add_argument("--device-budget-mb", type=float, default=None,
-                    help="per-device artifact byte budget in MiB (§17.2); "
-                         "not ported yet (ROADMAP.md queue 1 step 8)")
+                    help="per-device artifact byte budget in MiB (§17.2): "
+                         "graphs projected over it build row-sharded "
+                         "artifacts spanning the mesh group (rejected "
+                         "without --mesh)")
     ap.add_argument("--health-json", default=None, metavar="PATH",
                     help="write engine.health() as JSON to PATH every "
                          "--health-interval seconds while draining "
@@ -206,14 +216,6 @@ def main(argv=None) -> None:
     from repro_torch.core.switching import ETA_DEFAULT
     from repro_torch.data import graphs
     from repro_torch.serve.bfs_engine import BfsEngine, TicketState
-
-    for flag, given in (("--mesh", args.mesh),
-                        ("--devices", args.devices is not None),
-                        ("--device-budget-mb",
-                         args.device_budget_mb is not None)):
-        if given:
-            ap.error(f"{flag}: mesh serving is not ported yet "
-                     f"(ROADMAP.md queue 1 step 8)")
 
     if args.kappa <= 0 or args.kappa % 32:
         ap.error(f"--kappa must be a positive multiple of 32, got {args.kappa}")
@@ -242,6 +244,32 @@ def main(argv=None) -> None:
         ap.error(f"--cancel-rate must be in [0, 1], got {args.cancel_rate}")
     if args.health_interval <= 0:
         ap.error(f"--health-interval must be > 0, got {args.health_interval}")
+    device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        import torch
+
+        from repro_torch.serve.mesh import EngineMesh
+
+        if args.device is not None:
+            # the counterpart of repro's forced host device count
+            if args.devices is not None and args.devices < 1:
+                ap.error(f"--devices must be >= 1, got {args.devices}")
+            devs = [device] * (args.devices or 1)
+        else:
+            devs = [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+            if args.devices is not None:
+                if not 1 <= args.devices <= len(devs):
+                    ap.error(f"--devices must be in [1, {len(devs)}], "
+                             f"got {args.devices}")
+                devs = devs[:args.devices]
+        mesh = EngineMesh(devs)
+        print(f"mesh: {mesh}")
+    elif args.devices is not None:
+        ap.error("--devices requires --mesh")
+    device_budget = (int(args.device_budget_mb * (1 << 20))
+                     if args.device_budget_mb is not None else None)
     eng = BfsEngine(kappa=args.kappa, cache_bytes=cache_bytes,
                     layout=args.layout, scheduler=args.scheduler,
                     switching=args.switching,
@@ -251,7 +279,7 @@ def main(argv=None) -> None:
                     max_queue_total=args.max_queue_total,
                     overload=args.overload,
                     build_retries=args.build_retries,
-                    device=resolve_device(args.device))
+                    mesh=mesh, device_budget=device_budget, device=device)
 
     kinds = [k.strip() for k in args.kinds.split(",") if k.strip()]
     bad = [k for k in kinds if k not in eng.workload_kinds]
@@ -364,6 +392,11 @@ def main(argv=None) -> None:
           f"retry_pending={h.retry_pending} "
           f"deadline_misses={h.deadline_misses} "
           f"degraded={dict(h.degraded) or '{}'}")
+    if args.mesh or args.device_budget_mb is not None:
+        occ = " ".join(f"dev{d}={b / (1 << 20):.2f}MiB"
+                       for d, b in sorted(h.device_bytes.items()))
+        print(f"  mesh occupancy: {occ or 'empty'} "
+              f"queue_depth={dict(sorted(h.device_queue_depth.items()))}")
     if args.deadline_ms is not None and h.service_times:
         ewma = " ".join(f"{k}={v * 1e3:.2f}ms"
                         for k, v in sorted(h.service_times.items()))

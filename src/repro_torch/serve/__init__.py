@@ -7,5 +7,5 @@ request lifecycle (``lifecycle``); what a lane computes is a
 ``bfs``/``closeness``/``distance``/``reach`` and the graph-analytics
 kinds ``cc``/``mis``/``tpv``, with their per-graph state, built in;
 ``register`` for more), with megatick windows of up to T levels on the
-device.  Counterpart of ``repro.serve``; mesh serving is not ported yet
-(ROADMAP.md queue 1)."""
+device, and mesh serving over a group of device slots (``mesh``).
+Counterpart of ``repro.serve``."""

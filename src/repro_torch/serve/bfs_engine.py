@@ -73,8 +73,14 @@ of one level under a conditional node on a device flag, launched T times
 (:class:`repro_torch.core.window.LevelWindow`); on the CPU the same level
 body runs in a host loop.
 
-Not ported yet (raises ``NotImplementedError`` naming its step of
-ROADMAP.md queue 1): mesh serving (``mesh=``, ``device_budget=``, step 8).
+Mesh serving (``mesh=``, ``device_budget=``, DESIGN.md §17), as in
+``repro``, over a group of device slots (:mod:`repro_torch.serve.mesh`): a
+graph that fits one slot is replicated across a slot group and served by one
+session per replica (source-parallel); one over the per-slot byte budget is
+row-sharded over the group and served by one session whose runner runs each
+level on every slot (graph-parallel, policy-off).  The cache accounts bytes
+per slot and evicts per slot; ``health()`` reports bytes and queue depth per
+slot.
 """
 from __future__ import annotations
 
@@ -101,6 +107,7 @@ from repro_torch.core.window import LevelWindow, stamp
 from repro_torch.kernels import ops, words
 from repro_torch.kernels import pull_mma_ms_packed as mma_mod
 from repro_torch.serve import lifecycle as lifecycle_mod
+from repro_torch.serve import mesh as mesh_mod
 from repro_torch.serve import workloads as workloads_mod
 from repro_torch.serve.workloads import (  # re-exported: request/result
     KIND_BFS, KIND_CLOSENESS, KIND_DISTANCE, KIND_REACH,  # noqa: F401
@@ -316,10 +323,20 @@ class GraphArtifacts:
     # build — the cause lands here and the engine quarantines the
     # (graph, 'mma') pair, serving the base layout instead
     degraded: str | None = None
+    # §17 mesh serving: per-slot replicas of ``bd`` (source-parallel), or a
+    # row-sharded substrate spanning the group (graph-parallel);
+    # ``placement`` pins the sessions to the group's slot ids and
+    # ``per_device_bytes`` is what each of those slots holds resident
+    replicas: list | None = None
+    sharded: "mesh_mod.ShardedGraph | None" = None
+    placement: tuple = ()
+    per_device_bytes: dict | None = None
 
     @property
     def total_bytes(self) -> int:
         """What this entry costs the cache budget (DESIGN.md §10.3)."""
+        if self.per_device_bytes:
+            return sum(self.per_device_bytes.values()) + self.aux_bytes
         return self.device_bytes + self.aux_bytes
 
 
@@ -334,7 +351,8 @@ def build_artifacts(name: str, g: Graph, *, reorder: str | None = None,
                     eta: float = switching_mod.ETA_DEFAULT,
                     probe_runner=None,
                     mma_tiles: bool = False,
-                    device=None) -> GraphArtifacts:
+                    device=None,
+                    prebuilt: tuple | None = None) -> GraphArtifacts:
     """Preprocess ``g`` for serving: reorder -> BVSS -> device tensors on
     ``device`` (None: CUDA), plus (``probe=True``) the switching probe,
     whose verdict is cached in the artifact.  ``probe_runner`` (a
@@ -345,10 +363,17 @@ def build_artifacts(name: str, g: Graph, *, reorder: str | None = None,
     ``mma_tiles=True`` also runs the §13.1 tile prep (int8 MMA mask planes,
     kept in ``art.mma`` and counted in ``aux_bytes``); the tiles are then
     handed to ``probe_runner`` as a second argument so the probe can time
-    the MMA dense path and record a ``dense_layout`` verdict (§13.4)."""
+    the MMA dense path and record a ``dense_layout`` verdict (§13.4).
+
+    ``prebuilt=(rr, b)`` hands over a reorder verdict and BVSS the mesh
+    build path already made on the host (it needed the byte projection
+    before deciding how to place), so they are not made again."""
     config = config or BvssConfig()
-    rr = reorder_mod.reorder(g, sigma=config.sigma, force=reorder)
-    b = build_bvss(g.permuted(rr.perm), config)
+    if prebuilt is not None:
+        rr, b = prebuilt
+    else:
+        rr = reorder_mod.reorder(g, sigma=config.sigma, force=reorder)
+        b = build_bvss(g.permuted(rr.perm), config)
     bd = blest.to_device(b, device=resolve_device(device))
     tiles, degraded = None, None
     if mma_tiles:
@@ -464,6 +489,14 @@ class GraphCache:
         self._retry: dict[str, tuple[int, float]] = {}
         self._attempts: dict[str, int] = {}
         self._executor: ThreadPoolExecutor | None = None
+        # §17.3 mesh hooks, set by the engine after construction: a
+        # replacement build callable ``fn(name, graph, reorder) -> art``
+        # (mesh-aware placement and sharding decisions live there), a
+        # per-slot byte bound, and the slot every non-placed entry is
+        # charged to (the cache's device's index)
+        self.build_fn = None
+        self.device_budget: int | None = None
+        self.default_device_id = self.device.index or 0
 
     def register(self, name: str, graph: Graph, *,
                  reorder: str | None = None) -> None:
@@ -487,6 +520,29 @@ class GraphCache:
     @property
     def current_bytes(self) -> int:
         return sum(e.total_bytes for e in self._entries.values())
+
+    def _devices_of(self, art: GraphArtifacts) -> dict[int, int]:
+        """Slot id -> resident bytes for one entry (§17.3).  Placed entries
+        carry their own ``per_device_bytes`` map (replicas or shards);
+        everything else is charged whole to the default slot.
+        ``aux_bytes`` (perm, probe state) is charged to the entry's first
+        slot so the configured bound still covers it."""
+        pdb = art.per_device_bytes
+        if pdb:
+            out = dict(pdb)
+            out[next(iter(out))] += art.aux_bytes
+            return out
+        return {self.default_device_id: art.total_bytes}
+
+    def per_device(self) -> dict[int, int]:
+        """Resident bytes per slot id across all entries (§17.3): the
+        accounting behind per-slot eviction and
+        ``engine.health().device_bytes``."""
+        out: dict[int, int] = {}
+        for art in self._entries.values():
+            for dev, nb in self._devices_of(art).items():
+                out[dev] = out.get(dev, 0) + nb
+        return out
 
     def peek(self, name: str) -> GraphArtifacts | None:
         """Resident entry without touching LRU order or hit stats."""
@@ -538,6 +594,10 @@ class GraphCache:
         if self.fault_hook is not None:
             self.fault_hook(name)
         g, reorder = self._specs[name]
+        if self.build_fn is not None:
+            # §17.3: the engine routes builds through the mesh subsystem
+            # (replication / row-sharding decided per graph at build time)
+            return self.build_fn(name, g, reorder)
         return build_artifacts(name, g, reorder=reorder, config=self.config,
                                probe=self.probe, eta=self.eta,
                                probe_runner=self.probe_runner,
@@ -687,10 +747,27 @@ class GraphCache:
     def _shrink(self) -> None:
         """Evict LRU entries until the budget holds; the entry just
         installed or returned is never the victim."""
-        if self.max_bytes is None:
+        if self.max_bytes is not None:
+            while (self.current_bytes > self.max_bytes
+                   and len(self._entries) > 1):
+                self._evict_entry(next(iter(self._entries)))
+        if self.device_budget is None:
             return
-        while self.current_bytes > self.max_bytes and len(self._entries) > 1:
-            self._evict_entry(next(iter(self._entries)))
+        # §17.3 per-slot bound: evict the LRU entry touching any over-budget
+        # slot.  The MRU entry (the one being installed / returned) is never
+        # the victim, so an entry that alone exceeds the bound still serves
+        # — oversized *admission* is the mesh build path's job.
+        while len(self._entries) > 1:
+            over = {d for d, nb in self.per_device().items()
+                    if nb > self.device_budget}
+            if not over:
+                return
+            victim = next(
+                (n for n in list(self._entries)[:-1]
+                 if over & set(self._devices_of(self._entries[n]))), None)
+            if victim is None:
+                return
+            self._evict_entry(victim)
 
     def _evict_entry(self, victim: str) -> None:
         self._entries.pop(victim)
@@ -1265,15 +1342,19 @@ class _GraphSession:
     The session pins ``art``/``runner`` for its lifetime, so a graph evicted
     from the cache mid-service keeps serving correctly.  The artifact
     arrives prebuilt from the engine: a session never builds anything, so
-    opening one is cheap and ``step()`` stays non-blocking."""
+    opening one is cheap and ``step()`` stays non-blocking.
+
+    A mesh session group (§17.1) hands each replica session its own
+    ``runner``; the lane metadata then lives on that runner's device."""
 
     def __init__(self, engine: "BfsEngine", name: str,
-                 queue: "_TenantQueue", art: GraphArtifacts):
+                 queue: "_TenantQueue", art: GraphArtifacts, runner=None):
         self.engine = engine
         self.name = name
         self.queue = queue
         self.art = art
-        self.runner = engine._runner_for(art)
+        self.runner = runner if runner is not None else engine._runner_for(art)
+        self.device = self.runner.bd.device
         kappa = engine.kappa
         self.lanes: list[BfsQuery | None] = [None] * kappa
         self.wl: list[Workload | None] = [None] * kappa
@@ -1291,7 +1372,10 @@ class _GraphSession:
         self.watch_ids = np.full(kappa, -1, np.int64)
         self.watch_dev = None
         self.tl = np.full(kappa, UNREACHED, np.int64)
-        self.policy_on = engine._policy_active(art)
+        # sharded runners run policy-off (§17.2): Eq. 6's queued sweep has
+        # no row-sharded formulation, so the dense path is always taken
+        self.policy_on = (engine._policy_active(art)
+                          and getattr(self.runner, "supports_policy", True))
         self.perm_dev = None  # art.perm on the device, at first extraction
         # session-held workload graph state (§15.2): populated from the
         # engine memo at first use, kept here so eviction mid-service
@@ -1316,6 +1400,11 @@ class _GraphSession:
     @property
     def in_flight(self) -> int:
         return sum(q is not None for q in self.lanes)
+
+    def close_windows(self) -> None:
+        """Frees the runner's windows: their graphs hold this session's
+        state."""
+        self.runner.close_windows()
 
     # ---- cancel / deadline reclamation between ticks (§16.2) --------------
     def _reclaim_lanes(self) -> None:
@@ -1408,7 +1497,7 @@ class _GraphSession:
         # per-level path keeps admission immediate
         if eng.megatick > 1 and not queue and not self.prefer_host:
             if self.meta_dev is None:
-                dev = art.bd.device
+                dev = self.device
                 self.meta_dev = (torch.from_numpy(active_arr).to(dev),
                                  torch.from_numpy(self.admitted_at).to(dev))
             self.state, hist = runner.megatick(
@@ -1511,7 +1600,7 @@ class _GraphSession:
             return None
         if self.watch_dev is None:
             self.watch_dev = torch.from_numpy(
-                np.maximum(self.watch_ids, 0)).to(self.art.bd.device)
+                np.maximum(self.watch_ids, 0)).to(self.device)
         return self.runner.watch_gather(self.state.levels, self.watch_dev)
 
     def _watch_tick(self) -> np.ndarray | None:
@@ -1580,7 +1669,7 @@ class _GraphSession:
         if lv_done:
             if self.perm_dev is None:
                 self.perm_dev = torch.from_numpy(
-                    art.perm.astype(np.int64)).to(art.bd.device)
+                    art.perm.astype(np.int64)).to(self.device)
             lv = self.runner.gather_level_cols(
                 self.state.levels, lv_done, self.admitted_at[lv_done],
                 self.perm_dev)
@@ -1682,9 +1771,16 @@ class BfsEngine:
     none) is where every artifact and lane lives; ``device="cpu"`` runs the
     plain PyTorch versions of the kernels.  ``megatick=T > 1`` runs up to
     T dense levels a tick as one device window when a graph's queue is
-    empty (DESIGN.md §11.1; the module docstring).  ``mesh=`` /
-    ``device_budget=`` (ROADMAP.md queue 1 step 8) are not ported yet and
-    raise ``NotImplementedError``.
+    empty (DESIGN.md §11.1; the module docstring).
+
+    Mesh serving (DESIGN.md §17): ``mesh=EngineMesh(slots)`` places each
+    graph on the least-loaded slot group, replicated there (source-parallel,
+    kappa lanes a slot); ``device_budget=`` bounds the bytes a slot holds:
+    a graph projected over it is row-sharded over its group (policy-off),
+    and with no group of two or more its tickets FAIL with
+    :class:`repro_torch.serve.mesh.OversizedGraphError`.  The slots are of
+    the engine device's type; the analytics kinds' graph state stays on
+    the engine's device.
     """
 
     def __init__(self, *, kappa: int = 32, cache_bytes: int | None = None,
@@ -1707,14 +1803,13 @@ class BfsEngine:
                  build_retries: int = 0,
                  build_backoff: float = 0.05,
                  build_backoff_cap: float = 2.0,
-                 mesh=None,
+                 mesh: "mesh_mod.EngineMesh | None" = None,
                  device_budget: int | None = None):
         if kappa % 32 != 0 or kappa <= 0:
             raise ValueError("kappa must be a positive multiple of 32")
-        if mesh is not None or device_budget is not None:
-            raise NotImplementedError(
-                "mesh serving (mesh=, device_budget=) is not ported yet: "
-                "ROADMAP.md queue 1 step 8")
+        if device_budget is not None and device_budget < 1:
+            raise ValueError(
+                f"device_budget must be >= 1 byte, got {device_budget}")
         if layout not in LAYOUTS:
             raise ValueError(
                 f"layout must be one of {LAYOUTS}, got {layout!r}")
@@ -1750,6 +1845,10 @@ class BfsEngine:
         self.kappa = kappa
         self.layout = layout
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"the mesh's slots are {mesh.device_type} devices, the "
+                f"engine's device is {self.device}")
         self.default_reorder = reorder
         self.switching = switching
         self.eta = float(eta)
@@ -1800,6 +1899,15 @@ class BfsEngine:
                                 clock=self._clock,
                                 device=self.device)
         self.cache.on_evict(self._drop_runner)
+        # §17 mesh serving: slot groups for source-parallel replication and
+        # the per-slot byte bound that triggers row-sharded builds (§17.2)
+        # and per-slot eviction (§17.3)
+        self.mesh = mesh
+        self.device_budget = device_budget
+        self._mesh_runners: dict[str, list] = {}
+        self.cache.device_budget = device_budget
+        if mesh is not None or device_budget is not None:
+            self.cache.build_fn = self._mesh_build
         # §16.5: dispatch parked builds by queued depth, not FIFO — the
         # build that unblocks the most waiting tickets runs first
         self.cache.build_priority = (
@@ -2138,7 +2246,7 @@ class BfsEngine:
             self._quantum_left = self._weight(self._rotation[0])
         in_flight = [q for q in sess.lanes if q is not None]
         lay = self._resolve_layout(sess.art)
-        sess.runner.close_windows()
+        sess.close_windows()
         self._drop_runner(name)
         self._quarantine_pair(name, lay, f"session tick raised: {exc!r}")
         queue = self._queues.get(name)
@@ -2338,11 +2446,19 @@ class BfsEngine:
             self.stats["max_live_sessions"], len(self._sessions))
 
     def _new_session(self, name: str, art: GraphArtifacts):
+        """One serving session for ``art``: a §17.1 mesh group (one replica
+        session per slot, kappa lanes each) when the artifact was
+        replicated across a slot group, else the plain single-runner
+        session.  Sharded artifacts (§17.2) run as one session whose runner
+        spans the whole group."""
+        if art.replicas:
+            return mesh_mod._MeshSessionGroup(self, name,
+                                              self._queues[name], art)
         return _GraphSession(self, name, self._queues[name], art)
 
     def _close_session(self, name: str) -> None:
         sess = self._sessions.pop(name)
-        sess.runner.close_windows()  # their graphs hold the session's state
+        sess.close_windows()
         was_head = self._rotation and self._rotation[0] == name
         self._rotation.remove(name)
         if was_head and self._rotation:
@@ -2475,7 +2591,6 @@ class BfsEngine:
         queue depths, deferred/in-flight occupancy, builds in every
         pipeline stage, shed/expiry/cancel/miss counters, the §16.4
         degradation registry, and the EWMA service-time estimates."""
-        queued = sum(len(qq) for qq in self._queues.values())
         return lifecycle_mod.EngineHealth(
             queue_depths={n: len(qq) for n, qq in self._queues.items()
                           if len(qq)},
@@ -2496,15 +2611,9 @@ class BfsEngine:
                          for k, v in sorted(self.stats.items())
                          if k.startswith("shed_tenant:")},
             service_times=self._slo.snapshot(),
-            device_bytes=({self._device_id: self.cache.current_bytes}
-                          if len(self.cache) else {}),
-            device_queue_depth=({self._device_id: queued} if queued
-                                else {}),
+            device_bytes=self.cache.per_device(),
+            device_queue_depth=self._device_queue_depth(),
         )
-
-    @property
-    def _device_id(self) -> int:
-        return self.device.index or 0
 
     # ---- per-graph runners / probe adoption --------------------------------
     def _base_layout(self) -> str:
@@ -2566,6 +2675,14 @@ class BfsEngine:
     def _runner_for(self, art: GraphArtifacts) -> _LaneRunner:
         name, bd = art.name, art.bd
         r = self._runners.get(name)
+        if art.sharded is not None:
+            # §17.2 graph-parallel: one runner spanning the whole group
+            if not isinstance(r, mesh_mod.ShardedLaneRunner) or r.bd is not bd:
+                r = mesh_mod.ShardedLaneRunner(
+                    art.sharded, bd, self.kappa,
+                    layout=self._resolve_layout(art))
+                self._runners[name] = r
+            return r
         if r is None or r.bd is not bd:
             layout = self._resolve_layout(art)
             r = (self._adopt_probe_runner(bd, layout)
@@ -2574,9 +2691,81 @@ class BfsEngine:
             self._runners[name] = r
         return r
 
+    def _mesh_runners_for(self, art: GraphArtifacts) -> list[_LaneRunner]:
+        """Per-replica runners for a §17.1 source-parallel artifact, one per
+        slot of its placement group, cached per graph.  Replica 0 is the
+        artifact's own ``bd`` and adopts the probe's runner where it
+        matches.  Mesh builds prep no MMA tiles, so an MMA runner preps its
+        own on its replica's device."""
+        name = art.name
+        group = self._mesh_runners.get(name)
+        if group is None or group[0].bd is not art.replicas[0]:
+            layout = self._resolve_layout(art)
+            group = [self._adopt_probe_runner(art.replicas[0], layout)
+                     or _LaneRunner(art.replicas[0], self.kappa,
+                                    layout=layout)]
+            group += [_LaneRunner(bd_k, self.kappa, layout=layout)
+                      for bd_k in art.replicas[1:]]
+            self._mesh_runners[name] = group
+            # keep the single-runner registry pointing at replica 0 so
+            # layout introspection (tests, launchers) sees the mesh graph
+            self._runners[name] = group[0]
+        return group
+
     def _drop_runner(self, name: str) -> None:
         self._runners.pop(name, None)
+        self._mesh_runners.pop(name, None)
         self._wl_state.pop(name, None)
+
+    # ---- mesh placement (§17) ----------------------------------------------
+    def _mesh_build(self, name: str, g: Graph,
+                    reorder: str | None) -> GraphArtifacts:
+        """The cache's ``build_fn`` when mesh serving or a per-slot byte
+        budget is configured: route the build through
+        :func:`repro_torch.serve.mesh.build_mesh_artifacts`, placing the
+        graph on the least-loaded slot group (§17.3)."""
+        group = self._pick_group() if self.mesh is not None else None
+        return mesh_mod.build_mesh_artifacts(
+            name, g, group=group, reorder=reorder,
+            config=self.cache.config, probe=self.cache.probe,
+            eta=self.cache.eta, probe_runner=self.cache.probe_runner,
+            device_budget=self.device_budget,
+            fault_hook=self.cache.fault_hook, device=self.device)
+
+    def _pick_group(self):
+        """Least-loaded placement (§17.3): the slot group carrying the
+        fewest resident cache bytes takes the next build.  Reads only the
+        cache's entry map, so the §14.3 worker thread may call it."""
+        groups = self.mesh.groups
+        if len(groups) == 1:
+            return groups[0]
+        per = self.cache.per_device()
+        return min(groups, key=lambda grp: sum(per.get(s.id, 0)
+                                               for s in grp))
+
+    def _placement_of(self, name: str) -> tuple:
+        """Slot ids serving ``name`` right now: the pinned session artifact
+        if live, else the resident / held entry; empty when the graph has
+        no placed artifact (single-device default)."""
+        sess = self._sessions.get(name)
+        if sess is not None:
+            return sess.art.placement
+        art = self.cache.peek(name) or self._built.get(name)
+        return art.placement if art is not None else ()
+
+    def _device_queue_depth(self) -> dict[int, int]:
+        """Queued requests per slot id (§17.3): each graph's queue depth
+        lands on every slot of its placement (lanes will open there), or on
+        the default slot when unplaced."""
+        out: dict[int, int] = {}
+        default = self.cache.default_device_id
+        for name, qq in self._queues.items():
+            depth = len(qq)
+            if not depth:
+                continue
+            for dev in (self._placement_of(name) or (default,)):
+                out[dev] = out.get(dev, 0) + depth
+        return out
 
     def _workload_graph_state(self, name: str, wl: Workload, graph) -> object:
         """Memoized ``Workload.graph_state`` for ``graph`` (§15.2), on this

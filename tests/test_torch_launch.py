@@ -4,8 +4,8 @@
 ``repro_torch.launch.bfs`` prints ``repro.launch.bfs``'s lines for each
 workload, less the timings; ``repro_torch.launch.serve_bfs`` serves all
 seven kinds at megatick 1 and 64 with ``--verify`` and writes a health file
-with the keys of ``repro``'s, and refuses the mesh flags, naming the
-ROADMAP step that ports them; each of ``examples/port/*.py`` runs; a
+with the keys of ``repro``'s (its mesh flags are in
+``tests/test_torch_mesh.py``); each of ``examples/port/*.py`` runs; a
 workload whose hook is ``graph_state(self, graph)`` finishes its ticket on
 the port's engine with ``repro``'s result, and a ``TypeError`` raised inside
 a hook still reaches the caller.
@@ -104,15 +104,6 @@ def test_serve_bfs_lifecycle_flags(capsys):
     out = capsys.readouterr().out
     assert "health: build_retries=0" in out
     assert out.strip().splitlines()[-1] == "verified against CPU oracle ✓"
-
-
-@pytest.mark.parametrize("flags", [["--mesh"], ["--devices", "2"],
-                                   ["--device-budget-mb", "1"]])
-def test_serve_bfs_mesh_flags_name_step_8(flags, capsys):
-    with pytest.raises(SystemExit) as e:
-        serve_bfs.main(["--device", "cpu"] + flags)
-    assert e.value.code != 0
-    assert "ROADMAP.md queue 1 step 8" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("name", ["quickstart", "multi_source_bfs",

@@ -445,13 +445,6 @@ def test_engine_without_device_needs_cuda(monkeypatch):
         t_engine.BfsEngine()
 
 
-@pytest.mark.parametrize("kw,step", [({"mesh": object()}, "step 8"),
-                                     ({"device_budget": 1 << 20}, "step 8")])
-def test_unported_options_raise(kw, step):
-    with pytest.raises(NotImplementedError, match=step):
-        t_engine.BfsEngine(device="cpu", **kw)
-
-
 def test_cpu_engine_launches_no_kernel():
     ops.reset_launch_counts()
     for layout in ("packed", "mma", "byteplane"):
