@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--kron-scale 22] [--road-scale 20]
-                          [--analytics-scale 17] [--launch-scale 20]
+                          [--analytics-scale 17] [--launch-scale 16]
+                          [--mesh-scale 18]
 
 Run from the root of a checkout; it needs one CUDA device, and nvcc to build
 the kernels.  Phases, each fatal (exit code 1, no result line):
@@ -151,6 +152,24 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    ``--verify``, scales capped by ``--launch-scale``; the serve runs with
    a health file, parsed after) and the four ``examples/port`` scripts,
    each a subprocess that must exit 0, its wall seconds recorded.
+9. Multi-device BLEST over MESH_SLOTS device slots on the one card: the
+   graph- and source-parallel drivers, mesh engines, the MESH_MATRIX
+   cells and the mesh launcher runs (``{"mesh": [...]}``).
+10. The LM serving path (no kernel of its own).  (a) Each of the ten
+   assigned configs' ``reduced()`` in f32, its weights drawn once on the
+   CPU from a seed and copied to the card: ``forward``, ``loss_fn``,
+   ``prefill``, 8 teacher-forced ``decode_step`` s and the cache after them
+   equal to the CPU's within atol 1e-4 / rtol 1e-4, greedy tokens equal; a
+   ``BatchEngine`` of 6 requests over 2 slots serving the CPU engine's
+   tokens, and each refilled request its solo run's (where an MoE layer's
+   capacity can drop a token of the batch, the rows are not independent,
+   and that check is left out).  (b) ``repro_torch.launch.serve.main`` at
+   full size in bf16 for tinyllama-1.1b, mamba2-370m, zamba2-7b and
+   qwen2-moe-a2.7b, one at a time (8 requests, 16 new tokens, 4 slots):
+   every request finishes with its 16 tokens; then teacher-forced decode
+   against ``forward`` over 256 tokens, finite, tinyllama within repro's
+   bf16 tolerance (atol 0.12, rtol 0.05), the others' max |d| and argmax
+   agreement recorded.
 
 Prints, before the last line: the card's name and power limit (as
 nvidia-smi gives them), one JSON line ``{"kernels": [...]}`` (launches on the
@@ -183,7 +202,12 @@ one JSON line ``{"switching": [...]}`` (per graph: levels, the
 misclassification rate, optimal over BLEST, each policy's total seconds)
 and one JSON line ``{"launch": [...]}`` (per run: arguments, exit code,
 wall seconds, last line; for the serve runs the served line and health
-fields).  The last line is ``{"ok": true, "device": {...}}``.
+fields), one JSON line ``{"mesh": [...]}`` and one JSON line ``{"lm":
+[...]}`` (per reduced config of phase 10 (a) the card's max |d| from the
+CPU, by output; per full-size model of (b) params and their bytes, init
+seconds, peak device bytes, ticks, tokens, tokens/s, ms per tick, the
+tick's byte bound, and the decode-against-forward max |d| and argmax
+agreement).  The last line is ``{"ok": true, "device": {...}}``.
 
 Edges/s is the number of directed edges (u, v) of the graph whose source u
 was reached, over the wall time of one ``Blest.bfs`` call (which includes
@@ -196,9 +220,12 @@ target lit up), over the wall time from the first submit to the drain.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import gc
 import hashlib
 import json
+import math
 import os
 import pathlib
 import re
@@ -246,6 +273,9 @@ ROAD_SERVE_SOURCES = 16      # x 4 kinds = 64 tickets on 32 lanes
 BRS_SOURCES = 3              # phase 8: sources of each BRS / BLEST cell
 BRS_RUNS = 5                 # timed runs from each source
 LAUNCH_TIMEOUT = 600         # seconds a launcher or example may take
+# the default --launch-scale: 16 keeps the whole run, phase 10 included,
+# within its time limit
+LAUNCH_SCALE = 16
 # phase 8 (c): (name, module, arguments); scales are capped by --launch-scale
 LAUNCHES = (
     ("bfs kron", "repro_torch.launch.bfs",
@@ -275,11 +305,25 @@ MESH_SLOTS = 4
 MESH_KERNELS = ("pull_ss", "frontier_sweep", "pull_ms",
                 "pull_scatter_ms_packed")
 MESH_KAPPA = 16              # (a): closeness_source_parallel's batch
-MESH_SERVE_SCALE = 20        # (b): kron scale of the mesh engines
+# (b): kron scale of the mesh engines; 18 keeps the whole run, phase 10
+# included, within its time limit
+MESH_SERVE_SCALE = 18
 MESH_SERVE_KAPPA = 64
 MESH_SERVE_SOURCES = 64      # x 4 kinds = 256 tickets
 MESH_LAUNCH_SCALE = 13       # (c): the mesh serve launcher's scale
 
+LM_TWIN_TOL = dict(atol=1e-4, rtol=1e-4)  # phase 10 (a): card = CPU, f32
+LM_TWIN_STEPS = 8            # teacher-forced decode steps held
+LM_TWIN_REQUESTS = 6         # (a)'s engine: 6 requests over 2 slots
+LM_TWIN_SLOTS = 2
+LM_FULL = ("tinyllama-1.1b", "mamba2-370m", "zamba2-7b", "qwen2-moe-a2.7b")
+LM_REQUESTS, LM_MAX_NEW = 8, 16
+LM_SERVE_ARGS = ("--requests", str(LM_REQUESTS), "--max-new", str(LM_MAX_NEW),
+                 "--slots", "4")
+LM_TF_TOKENS = 256           # (b): decode against forward, a multiple of
+                             # every SSM chunk
+LM_TF_HELD = ("tinyllama-1.1b",)  # held to repro's own bf16 tolerance
+LM_BF16_TOL = dict(atol=0.12, rtol=0.05)  # tests/test_train_substrate.py
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -424,6 +468,7 @@ class Smoke:
         self.switching_rows: list[dict] = []
         self.launch_rows: list[dict] = []
         self.mesh_rows: list[dict] = []
+        self.lm_rows: list[dict] = []
         self.ms_closeness: dict = {}  # label -> (bd sources, far, reach)
         self.state_builds: list[tuple] = []  # (graph, kind, seconds)
         self.instrument_state_builds()
@@ -2758,6 +2803,254 @@ class Smoke:
              ["examples/port/closeness_centrality.py", "--devices",
               str(MESH_SLOTS)], check_example)])
 
+    # ------------------------------------------------------ phase 10: LM --
+    def lm_modules(self):
+        import repro_torch.configs as configs
+        from repro_torch.launch import serve as launch_serve
+        from repro_torch.models import model as lm
+        from repro_torch.serve import serve_loop
+
+        return configs, lm, serve_loop, launch_serve
+
+    def lm_close(self, what, got, want, tol) -> float:
+        """Max |got - want|; fails unless the two agree within ``tol``."""
+        got = got.detach().float().cpu()
+        want = want.detach().float().cpu()
+        if got.shape != want.shape:
+            fail(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        if not self.torch.allclose(got, want, **tol):
+            fail(f"{what}: differs beyond {tol} (max |d| {err})")
+        return err
+
+    def lm_batch(self, cfg, seed):
+        """A (2, 16) batch for the config's modality, from a seed."""
+        np = self.np
+        rng = np.random.default_rng(seed)
+        toks = rng.integers(0, cfg.vocab, (2, 16))
+        batch = {"tokens": toks, "targets": toks}
+        if cfg.modality == "embeds":
+            batch = {"embeds": rng.standard_normal((2, 16, cfg.d_model),
+                                                   dtype=np.float32),
+                     "targets": toks}
+        elif cfg.modality == "prefix":
+            txt = toks[:, :16 - cfg.prefix_len]
+            batch = {"tokens": txt, "targets": txt,
+                     "embeds": rng.standard_normal(
+                         (2, cfg.prefix_len, cfg.d_model), dtype=np.float32)}
+        return batch, toks
+
+    def lm_outputs(self, lm, cfg, model, batch, toks) -> dict:
+        """forward, loss_fn, prefill (text only), LM_TWIN_STEPS
+        teacher-forced decode steps and the cache after them, of ``model``
+        on its device."""
+        torch, dev = self.torch, model.device
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        tt = torch.from_numpy(toks).to(dev)
+        out = {}
+        with torch.inference_mode():
+            out["forward"], out["aux"] = lm.forward(
+                cfg, model, b.get("tokens"), b.get("embeds"))
+            out["loss"], metrics = lm.loss_fn(cfg, model, b)
+            out["ce"] = metrics["ce"]
+            if cfg.modality == "text":
+                out["prefill"] = lm.prefill(cfg, model, tt, 64)
+            cache = lm.init_cache(cfg, tt.shape[0], 64, dev)
+            for t in range(LM_TWIN_STEPS):
+                out[f"decode {t}"], cache = lm.decode_step(
+                    cfg, model, cache, tt[:, t:t + 1], t)
+            out.update((f"cache {k}", v) for k, v in cache.items())
+        return out
+
+    def lm_serve(self, serve_loop, cfg, model, slots, reqs):
+        """The tokens of ``reqs`` (rid, prompt) served, 6 new tokens each,
+        by a BatchEngine of ``slots`` slots on ``model``'s device."""
+        eng = serve_loop.BatchEngine(cfg, model, slots=slots, max_seq=64,
+                                     eos=-1)
+        for rid, prompt in reqs:
+            eng.submit(serve_loop.Request(rid=rid, prompt=prompt, max_new=6))
+        done = eng.run_until_done()
+        if not all(r.done and len(r.generated) == 6 for r in done):
+            fail(f"{cfg.name}: a request did not finish with 6 new tokens")
+        return [r.generated for r in done]
+
+    @staticmethod
+    def lm_rows_independent(cfg, slots: int) -> bool:
+        """Whether a decode batch's rows are independent of each other: an
+        MoE layer routes the batch as one group, and a token can be dropped
+        only where an expert's capacity is below the tokens in the group."""
+        if cfg.moe is None:
+            return True
+        m = cfg.moe
+        cap = max(1, math.ceil(slots * m.top_k / m.num_experts
+                               * m.capacity_factor))
+        return cap >= slots
+
+    def lm_twins(self):
+        """(a) Each assigned config's ``reduced()`` in f32 on the card
+        against the same weights on the CPU."""
+        torch = self.torch
+        configs, lm, serve_loop, _ = self.lm_modules()
+        for name in configs.ASSIGNED:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(configs.get(name).reduced(),
+                                      dtype="float32",
+                                      kv_cache_dtype="float32")
+            cpu = lm.init_params(cfg, seed=0, device="cpu")
+            card = copy.deepcopy(cpu).to(self.dev)
+            batch, toks = self.lm_batch(cfg, seed=1)
+            want = self.lm_outputs(lm, cfg, cpu, batch, toks)
+            got = self.lm_outputs(lm, cfg, card, batch, toks)
+            errs = {k: self.lm_close(f"{name} reduced {k}", got[k], want[k],
+                                     LM_TWIN_TOL) for k in want}
+            for t in range(LM_TWIN_STEPS):
+                if not torch.equal(got[f"decode {t}"].argmax(-1).cpu(),
+                                   want[f"decode {t}"].argmax(-1)):
+                    fail(f"{name} reduced: greedy tokens differ at step {t}")
+            rng = self.np.random.default_rng(0)
+            reqs = [(i, rng.integers(0, cfg.vocab, 4 + 3 * i))
+                    for i in range(LM_TWIN_REQUESTS)]
+            with torch.inference_mode():
+                card_tokens = self.lm_serve(serve_loop, cfg, card,
+                                            LM_TWIN_SLOTS, reqs)
+                if card_tokens != self.lm_serve(serve_loop, cfg, cpu,
+                                                LM_TWIN_SLOTS, reqs):
+                    fail(f"{name} reduced: the card's engine and the CPU's "
+                         f"serve different tokens")
+                solo = self.lm_rows_independent(cfg, LM_TWIN_SLOTS)
+                if solo:  # the refills: every request past the first slots
+                    for rid, prompt in reqs[LM_TWIN_SLOTS:]:
+                        if self.lm_serve(serve_loop, cfg, card, 1,
+                                         [(rid, prompt)])[0] != \
+                                card_tokens[rid]:
+                            fail(f"{name} reduced: refilled request {rid} "
+                                 f"differs from its solo run")
+            self.sync()
+            self.lm_rows.append({
+                "name": name, "size": "reduced", "dtype": "float32",
+                "max_abs_err": max(errs.values()),
+                "max_abs_err_by_output": errs,
+                "engine_requests": LM_TWIN_REQUESTS,
+                "engine_slots": LM_TWIN_SLOTS,
+                "refills_equal_solo": solo,
+                "seconds": time.perf_counter() - t0})
+            log(f"{name} reduced f32: card = CPU within {LM_TWIN_TOL} (max "
+                f"|d| {max(errs.values()):.3g}), engines equal"
+                + (", refills = solo runs" if solo else
+                   " (MoE capacity couples the rows: no solo check)"))
+
+    def lm_tick_bound_ms(self, cfg, model, reqs, ticks) -> float:
+        """The least time of one tick, averaged over the run: every weight
+        byte read once a tick, plus the K/V bytes each active slot reads
+        (positions below its cursor + 1) and the SSM / conv state it reads
+        and writes, over HBM_BYTES_PER_S."""
+        weights = sum(p.numel() * p.element_size() for p in model.parameters())
+        # a request is active for T = prompt + max_new - 1 ticks, reading
+        # c + 1 positions at cursor c
+        active = [len(r.prompt) + len(r.generated) - 1 for r in reqs]
+        positions = sum(t * (t + 1) // 2 for t in active)
+        kv_el = self.torch.empty((), dtype=getattr(
+            self.torch, cfg.kv_cache_dtype)).element_size()
+        attn_layers = {"ssm": 0, "hybrid": cfg.n_layers // max(
+            cfg.attn_every, 1)}.get(cfg.family, cfg.n_layers)
+        kv_bytes = positions * attn_layers * 2 * cfg.n_kv * cfg.hd * kv_el
+        state_bytes = 0
+        if cfg.ssm is not None:  # f32 (heads x head_dim = d_inner) x d_state
+            s = cfg.ssm
+            di = s.expand * cfg.d_model
+            per_slot = 4 * cfg.n_layers * (
+                di * s.d_state + (s.conv_width - 1) * (di + 2 * s.d_state))
+            state_bytes = 2 * per_slot * sum(active)  # read and written
+        total = weights * ticks + kv_bytes + state_bytes
+        return total / ticks / HBM_BYTES_PER_S * 1e3
+
+    def lm_full(self, name):
+        """(b) ``launch.serve`` at full size in bf16 (LM_SERVE_ARGS), then
+        teacher-forced decode against forward over LM_TF_TOKENS tokens."""
+        torch, np = self.torch, self.np
+        _, lm, _, launch_serve = self.lm_modules()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            served = launch_serve.main(["--arch", name, *LM_SERVE_ARGS,
+                                        "--device", str(self.dev)])
+        cfg, model, reqs = served.cfg, served.model, served.requests
+        if len(reqs) != LM_REQUESTS or not all(
+                r.done and len(r.generated) == LM_MAX_NEW for r in reqs):
+            fail(f"{name}: not every request finished with {LM_MAX_NEW} "
+                 f"tokens")
+        ticks, tokens = served.engine.ticks, sum(len(r.generated)
+                                                 for r in reqs)
+        row = {
+            "name": name, "size": "full", "dtype": cfg.dtype,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab,
+            "params": sum(p.numel() for p in model.parameters()),
+            "params_bytes": sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+            "init_s": served.init_s,
+            "peak_serve_bytes": torch.cuda.max_memory_allocated(),
+            "requests": len(reqs), "slots": served.engine.slots,
+            "ticks": ticks, "tokens": tokens,
+            "serve_s": served.seconds,
+            "tokens_per_s": tokens / served.seconds,
+            "ms_per_tick": served.seconds / ticks * 1e3,
+            # 2 x params x slots operations a tick take under 2% of the
+            # byte time at the bf16 peak
+            "tick_bound_ms": self.lm_tick_bound_ms(cfg, model, reqs, ticks),
+            "bound_by": "bytes"}
+        del served
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab, (1, LM_TF_TOKENS))).to(self.dev)
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            full, _ = lm.forward(cfg, model, toks)
+            cache = lm.init_cache(cfg, 1, LM_TF_TOKENS, self.dev)
+            steps = []
+            for t in range(LM_TF_TOKENS):
+                logits, cache = lm.decode_step(cfg, model, cache,
+                                               toks[:, t:t + 1], t)
+                steps.append(logits)
+            stepped = torch.cat(steps, dim=1)
+        self.sync()
+        if not (torch.isfinite(full).all() and torch.isfinite(stepped).all()):
+            fail(f"{name}: non-finite logits")
+        if name in LM_TF_HELD:
+            self.lm_close(f"{name} decode against forward", stepped, full,
+                          LM_BF16_TOL)
+        row.update({
+            "tf_tokens": LM_TF_TOKENS,
+            "tf_max_abs_err": float((stepped - full).abs().max()),
+            "tf_argmax_agree": float((stepped.argmax(-1) == full.argmax(-1))
+                                     .float().mean()),
+            "tf_held_to": LM_BF16_TOL if name in LM_TF_HELD else None,
+            "tf_s": time.perf_counter() - t1,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "seconds": time.perf_counter() - t0})
+        self.lm_rows.append(row)
+        gib = row["params_bytes"] / 2**30
+        log(f"{name}: {row['params']:,} params ({gib:.2f} GiB) drawn in "
+            f"{row['init_s']:.2f} s; {tokens} tokens in "
+            f"{ticks} ticks, {row['ms_per_tick']:.2f} ms a tick (bound "
+            f"{row['tick_bound_ms']:.3f}); decode vs forward max |d| "
+            f"{row['tf_max_abs_err']:.4g}, argmax agree "
+            f"{row['tf_argmax_agree']:.4f}; peak "
+            f"{row['peak_bytes'] / 2**30:.2f} GiB")
+        del model, cache, full, stepped, steps
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def lm_phase(self):
+        """Phase 10: (a) the reduced configs against the CPU twin, (b) the
+        full-size models through the launcher, one at a time."""
+        t0 = time.perf_counter()
+        self.lm_twins()
+        log(f"phase 10 (a) took {time.perf_counter() - t0:.1f} s")
+        for name in LM_FULL:
+            self.lm_full(name)
+
     def bound(self, nbytes, nops, peak=ALU_OPS_PER_S):
         """The least time for ``nbytes`` moved once and ``nops`` operations
         at ``peak``, and which of the two sets it."""
@@ -2782,7 +3075,7 @@ def nvidia_smi() -> str:
 
 
 def run(smoke: Smoke, kron_scale: int, road_scale: int,
-        analytics_scale: int = 17, launch_scale: int = 20,
+        analytics_scale: int = 17, launch_scale: int = LAUNCH_SCALE,
         mesh_scale: int = MESH_SERVE_SCALE) -> list[dict]:
     ops, graphs, Blest = smoke.ops, smoke.graphs, smoke.Blest
 
@@ -2933,6 +3226,14 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int,
     if missing:
         fail(f"kernels never launched in phase 9: {missing}")
     log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    if smoke.dev.type == "cuda":
+        smoke.torch.cuda.empty_cache()
+
+    log(f"phase 10: the LM serving path: {len(LM_FULL)} models at full size")
+    t0 = time.perf_counter()
+    smoke.lm_phase()
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
     return kernel_rows
 
 
@@ -2941,7 +3242,7 @@ def main(argv=None) -> None:
     ap.add_argument("--kron-scale", type=int, default=22)
     ap.add_argument("--road-scale", type=int, default=20)
     ap.add_argument("--analytics-scale", type=int, default=17)
-    ap.add_argument("--launch-scale", type=int, default=20,
+    ap.add_argument("--launch-scale", type=int, default=LAUNCH_SCALE,
                     help="cap on the scales of phase 8's launcher runs")
     ap.add_argument("--mesh-scale", type=int, default=MESH_SERVE_SCALE,
                     help="kron scale of phase 9's mesh engines")
@@ -2980,6 +3281,7 @@ def main(argv=None) -> None:
     print(json.dumps({"switching": smoke.switching_rows}))
     print(json.dumps({"launch": smoke.launch_rows}))
     print(json.dumps({"mesh": smoke.mesh_rows}))
+    print(json.dumps({"lm": smoke.lm_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

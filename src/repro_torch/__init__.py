@@ -13,6 +13,10 @@ multi-source layout (``core/msbfs_packed``), the serve engine
 (:class:`repro_torch.serve.bfs_engine.BfsEngine`) with the analytics
 kinds, the BRS baseline (``core/brs_baseline``), multi-device BLEST and
 mesh serving over a group of device slots (``core/distributed``,
-``serve/mesh``), and the launchers (``python -m repro_torch.launch.bfs``
-/ ``.serve_bfs``).
+``serve/mesh``), the launchers (``python -m repro_torch.launch.bfs``
+/ ``.serve_bfs``), and the LM substrate's serving path: the model configs
+(``configs``), the models (``models/{layers,moe,mamba2,model}``, with
+``models/convert`` to load ``repro``'s parameter tree), the synthetic
+token pipeline (``data/synthetic``), the continuous-batching
+``serve.serve_loop.BatchEngine`` and ``python -m repro_torch.launch.serve``.
 """

@@ -1,0 +1,10 @@
+"""tinyllama-1.1b: 22L d_model=2048 32H (GQA kv=4) d_ff=5632 vocab=32000.
+llama2-arch small. [arXiv:2401.02385; hf]"""
+from repro_torch.configs import register
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = register(ArchConfig(
+    name="tinyllama-1.1b", family="dense",
+    n_layers=22, d_model=2048, n_heads=32, n_kv=4, d_ff=5632, vocab=32000,
+    source="arXiv:2401.02385; hf",
+))

@@ -1,0 +1,6 @@
+"""The LM substrate's models, the counterpart of ``repro.models``:
+transformer blocks and blockwise attention (``layers``), Mamba-2 SSD
+(``mamba2``), mixture-of-experts (``moe``), the architecture-dispatching
+:class:`~repro_torch.models.model.Lm` with forward / prefill / decode
+(``model``), and ``convert``, which loads repro's parameter tree (port
+only, for the tests)."""

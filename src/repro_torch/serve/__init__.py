@@ -8,4 +8,6 @@ request lifecycle (``lifecycle``); what a lane computes is a
 kinds ``cc``/``mis``/``tpv``, with their per-graph state, built in;
 ``register`` for more), with megatick windows of up to T levels on the
 device, and mesh serving over a group of device slots (``mesh``).
-Counterpart of ``repro.serve``."""
+``serve_loop`` is the LM decode engine (``BatchEngine``: fixed slots
+refilled from a queue, each slot decoding at its own cursor) and its
+prefill / decode step builders.  Counterpart of ``repro.serve``."""
