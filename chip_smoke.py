@@ -150,8 +150,9 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    phase 3's kron-22 and phase 4's road-20 ``bd`` (Fig. 5).  (c) Each run
    of ``LAUNCHES`` (``repro_torch.launch.bfs`` and ``.serve_bfs`` with
    ``--verify``, scales capped by ``--launch-scale``; the serve runs with
-   a health file, parsed after) and the four ``examples/port`` scripts,
-   each a subprocess that must exit 0, its wall seconds recorded.
+   a health file, parsed after), all started at once, then the four
+   ``examples/port`` scripts at once, each a subprocess that must exit 0,
+   its wall seconds from the common start recorded.
 9. Multi-device BLEST over MESH_SLOTS device slots on the one card: the
    graph- and source-parallel drivers, mesh engines, the MESH_MATRIX
    cells and the mesh launcher runs (``{"mesh": [...]}``).
@@ -167,9 +168,29 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    full size in bf16 for tinyllama-1.1b, mamba2-370m, zamba2-7b and
    qwen2-moe-a2.7b, one at a time (8 requests, 16 new tokens, 4 slots):
    every request finishes with its 16 tokens; then teacher-forced decode
-   against ``forward`` over 256 tokens, finite, tinyllama within repro's
+   against ``forward`` over 256 tokens (128 for the models without SSM
+   layers), finite, tinyllama within repro's
    bf16 tolerance (atol 0.12, rtol 0.05), the others' max |d| and argmax
    agreement recorded.
+11. LM training (no kernel of its own).  (a) Each of the ten assigned
+   configs' ``reduced()`` in f32, three train steps (tinyllama with two
+   microbatches) on the card and on the CPU from the same weights: loss,
+   grad norm, the parameters and ``nu`` after them equal within atol /
+   rtol 1e-4.  (b) ``repro_torch.launch.train.main`` for tinyllama-1.1b
+   at its published widths in bf16 with remat "full": global batch 8 x
+   1,024 tokens in two microbatches, six steps, a checkpoint every three
+   into a temporary directory (its free space checked first); the step-6
+   checkpoint is then removed (the job died before writing it) and a
+   second launch resumes from step 3: its steps 3-5 and its final
+   parameters and moments equal the first run's bit for bit, both runs
+   under ``torch.use_deterministic_algorithms`` (CUDA's embedding and
+   gather backward otherwise add with atomics); ms a step, tokens/s,
+   model FLOPs and their share of the bf16 peak, peak bytes, save and
+   restore seconds; then one step with remat "dots" for its peak bytes.
+   (c) A (2 data x 2 model) slot mesh on four slots of the card: for
+   reduced tinyllama and qwen2-moe in f32 two train steps, prefill and
+   four decode steps equal to one device; a checkpoint restored onto the
+   slots.  (d) ``examples/port/train_lm.py --steps 60`` as a subprocess.
 
 Prints, before the last line: the card's name and power limit (as
 nvidia-smi gives them), one JSON line ``{"kernels": [...]}`` (launches on the
@@ -207,7 +228,12 @@ fields), one JSON line ``{"mesh": [...]}`` and one JSON line ``{"lm":
 CPU, by output; per full-size model of (b) params and their bytes, init
 seconds, peak device bytes, ticks, tokens, tokens/s, ms per tick, the
 tick's byte bound, and the decode-against-forward max |d| and argmax
-agreement).  The last line is ``{"ok": true, "device": {...}}``.
+agreement), and one JSON line ``{"train": [...]}`` (per reduced config
+of phase 11 (a) the card's max |d| from the CPU; for (b) params, losses,
+ms per step, tokens/s, model and hardware FLOPs, the bf16 peak share and
+bound, save and restore seconds, peak bytes with remat "full" and
+"dots"; per (c) config the max |d| from one device; (d)'s run).  The
+last line is ``{"ok": true, "device": {...}}``.
 
 Edges/s is the number of directed edges (u, v) of the graph whose source u
 was reached, over the wall time of one ``Blest.bfs`` call (which includes
@@ -273,9 +299,9 @@ ROAD_SERVE_SOURCES = 16      # x 4 kinds = 64 tickets on 32 lanes
 BRS_SOURCES = 3              # phase 8: sources of each BRS / BLEST cell
 BRS_RUNS = 5                 # timed runs from each source
 LAUNCH_TIMEOUT = 600         # seconds a launcher or example may take
-# the default --launch-scale: 16 keeps the whole run, phase 10 included,
-# within its time limit
-LAUNCH_SCALE = 16
+# the default --launch-scale: 14 keeps the whole run, phases 10 and 11
+# included, within its time limit
+LAUNCH_SCALE = 14
 # phase 8 (c): (name, module, arguments); scales are capped by --launch-scale
 LAUNCHES = (
     ("bfs kron", "repro_torch.launch.bfs",
@@ -320,10 +346,27 @@ LM_FULL = ("tinyllama-1.1b", "mamba2-370m", "zamba2-7b", "qwen2-moe-a2.7b")
 LM_REQUESTS, LM_MAX_NEW = 8, 16
 LM_SERVE_ARGS = ("--requests", str(LM_REQUESTS), "--max-new", str(LM_MAX_NEW),
                  "--slots", "4")
-LM_TF_TOKENS = 256           # (b): decode against forward, a multiple of
-                             # every SSM chunk
+LM_TF_TOKENS = 256           # (b): decode against forward for the SSM
+                             # models, a multiple of every SSM chunk; the
+LM_TF_TOKENS_ATTN = 128      # attention-only models take 128
 LM_TF_HELD = ("tinyllama-1.1b",)  # held to repro's own bf16 tolerance
 LM_BF16_TOL = dict(atol=0.12, rtol=0.05)  # tests/test_train_substrate.py
+# phase 11: LM training
+TRAIN_TWIN_TOL = dict(atol=1e-4, rtol=1e-4)  # (a): card = CPU, f32
+TRAIN_TWIN_STEPS = 3
+TRAIN_TWIN_SHAPE = (16, 4)   # (a): seq, global batch
+TRAIN_TWIN_MB = "tinyllama-1.1b"  # (a): the config run with microbatches=2
+TRAIN_OPT = dict(lr=1e-4, warmup_steps=2)  # (a), (c): 1e-4 a step
+TRAIN_FULL = "tinyllama-1.1b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB = 1024, 8, 2
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
+TRAIN_ARGS = ("--arch", TRAIN_FULL, "--seq-len", str(TRAIN_SEQ),
+              "--global-batch", str(TRAIN_BATCH), "--microbatches",
+              str(TRAIN_MB), "--steps", str(TRAIN_STEPS), "--ckpt-every",
+              str(TRAIN_CKPT_EVERY), "--log-every", "1")
+TRAIN_MESH = ("tinyllama-1.1b", "qwen2-moe-a2.7b")  # (c): dense and MoE
+TRAIN_EXAMPLE_STEPS = 60
+BF16_FLOPS_PER_S = 989e12    # the H100's dense bf16 peak
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -469,6 +512,7 @@ class Smoke:
         self.launch_rows: list[dict] = []
         self.mesh_rows: list[dict] = []
         self.lm_rows: list[dict] = []
+        self.train_rows: list[dict] = []
         self.ms_closeness: dict = {}  # label -> (bd sources, far, reach)
         self.state_builds: list[tuple] = []  # (graph, kind, seconds)
         self.instrument_state_builds()
@@ -2479,12 +2523,13 @@ class Smoke:
         return {}
 
     def launch_phase(self, cap: int):
-        """Phase 8 (c): each launcher run of LAUNCHES in turn (scales
-        capped at ``cap``) with its --verify (the serve runs with a health
-        file that is then parsed), then the four examples of examples/port
-        together."""
+        """Phase 8 (c): the launcher runs of LAUNCHES all at once (scales
+        capped at ``cap``) with their --verify (the serve runs with a
+        health file that is then parsed), then the four examples of
+        examples/port together."""
         health_dir = ROOT / "build" / "chip_smoke"
         health_dir.mkdir(parents=True, exist_ok=True)
+        runs = []
         for name, module, args in LAUNCHES:
             args = re.sub(r"--scale (\d+)",
                           lambda m: f"--scale {min(int(m[1]), cap)}",
@@ -2495,7 +2540,8 @@ class Smoke:
                 health = health_dir / f"health-{name.split()[1]}.json"
                 args += ["--health-json", str(health)]
                 check = self.served(health)
-            self.launch([(name, ["-m", module] + args, check)])
+            runs.append((name, ["-m", module] + args, check))
+        self.launch(runs)
         # the examples are small: all four at once
         self.launch([(f"example {name}", [f"examples/port/{name}.py"],
                       lambda lines: {} if lines else fail(
@@ -2966,7 +3012,8 @@ class Smoke:
 
     def lm_full(self, name):
         """(b) ``launch.serve`` at full size in bf16 (LM_SERVE_ARGS), then
-        teacher-forced decode against forward over LM_TF_TOKENS tokens."""
+        teacher-forced decode against forward over LM_TF_TOKENS tokens
+        (LM_TF_TOKENS_ATTN for a model without SSM layers)."""
         torch, np = self.torch, self.np
         _, lm, _, launch_serve = self.lm_modules()
         gc.collect()
@@ -3002,14 +3049,15 @@ class Smoke:
             "tick_bound_ms": self.lm_tick_bound_ms(cfg, model, reqs, ticks),
             "bound_by": "bytes"}
         del served
+        n_tf = LM_TF_TOKENS if cfg.ssm is not None else LM_TF_TOKENS_ATTN
         toks = torch.from_numpy(np.random.default_rng(2).integers(
-            0, cfg.vocab, (1, LM_TF_TOKENS))).to(self.dev)
+            0, cfg.vocab, (1, n_tf))).to(self.dev)
         t1 = time.perf_counter()
         with torch.inference_mode():
             full, _ = lm.forward(cfg, model, toks)
-            cache = lm.init_cache(cfg, 1, LM_TF_TOKENS, self.dev)
+            cache = lm.init_cache(cfg, 1, n_tf, self.dev)
             steps = []
-            for t in range(LM_TF_TOKENS):
+            for t in range(n_tf):
                 logits, cache = lm.decode_step(cfg, model, cache,
                                                toks[:, t:t + 1], t)
                 steps.append(logits)
@@ -3021,7 +3069,7 @@ class Smoke:
             self.lm_close(f"{name} decode against forward", stepped, full,
                           LM_BF16_TOL)
         row.update({
-            "tf_tokens": LM_TF_TOKENS,
+            "tf_tokens": n_tf,
             "tf_max_abs_err": float((stepped - full).abs().max()),
             "tf_argmax_agree": float((stepped.argmax(-1) == full.argmax(-1))
                                      .float().mean()),
@@ -3050,6 +3098,322 @@ class Smoke:
         log(f"phase 10 (a) took {time.perf_counter() - t0:.1f} s")
         for name in LM_FULL:
             self.lm_full(name)
+
+    # ------------------------------------------------ phase 11: training --
+    def train_modules(self):
+        import repro_torch.configs as configs
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.data import synthetic
+        from repro_torch.launch import mesh as mesh_mod
+        from repro_torch.launch import train as launch_train
+        from repro_torch.models import convert
+        from repro_torch.train import checkpoint as ckpt
+        from repro_torch.train import optimizer as opt
+        from repro_torch.train import sharding
+        from repro_torch.train import train_loop
+
+        return dataclasses.make_dataclass("TrainModules", [
+            "configs", "ShapeConfig", "synthetic", "mesh", "launch",
+            "convert", "ckpt", "opt", "sharding", "loop"])(
+            configs, ShapeConfig, synthetic, mesh_mod, launch_train, convert,
+            ckpt, opt, sharding, train_loop)
+
+    def train_steps(self, t, cfg, model, microbatches, batches):
+        """The metrics of a train step over each of ``batches`` on
+        ``model``'s device (AdamW at TRAIN_OPT)."""
+        ocfg = t.opt.AdamWConfig(**TRAIN_OPT)
+        state = t.opt.init_opt_state(model, ocfg)
+        step = t.loop.build_train_step(cfg, ocfg, microbatches=microbatches)
+        return [{k: float(v) for k, v in step(model, state, b).items()}
+                for b in batches], state
+
+    def train_twins(self):
+        """(a) Each assigned config's ``reduced()`` in f32: TRAIN_TWIN_STEPS
+        train steps on the card against the same steps on the CPU from the
+        same weights."""
+        t = self.train_modules()
+        seq, gb = TRAIN_TWIN_SHAPE
+        shape = t.ShapeConfig("twin", seq, gb, "train")
+        for name in t.configs.ASSIGNED:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(t.configs.get(name).reduced(),
+                                      dtype="float32",
+                                      kv_cache_dtype="float32")
+            mb = 2 if name == TRAIN_TWIN_MB else 1
+            batches = [t.synthetic.batch_for_step(
+                cfg, shape, t.synthetic.DataConfig(), s)
+                for s in range(TRAIN_TWIN_STEPS)]
+            cpu = self.lm_modules()[1].init_params(cfg, seed=0, device="cpu")
+            card = copy.deepcopy(cpu).to(self.dev)
+            want, want_opt = self.train_steps(t, cfg, cpu, mb, batches)
+            got, got_opt = self.train_steps(t, cfg, card, mb, batches)
+            errs = {}
+            for s, (g, w) in enumerate(zip(got, want)):
+                for k in ("loss", "grad_norm", "lr"):
+                    errs[f"{k} {s}"] = self.lm_close(
+                        f"{name} reduced step {s} {k}", self.torch.tensor(
+                            g[k]), self.torch.tensor(w[k]), TRAIN_TWIN_TOL)
+            params = max(self.lm_close(f"{name} reduced {k} after "
+                                       f"{TRAIN_TWIN_STEPS} steps", a, b,
+                                       TRAIN_TWIN_TOL)
+                         for (k, a), b in zip(card.named_parameters(),
+                                              cpu.parameters()))
+            nu = max(self.lm_close(f"{name} reduced nu {k}", a,
+                                   want_opt["nu"][k], TRAIN_TWIN_TOL)
+                     for k, a in got_opt["nu"].items())
+            self.sync()
+            self.train_rows.append({
+                "name": name, "size": "reduced", "dtype": "float32",
+                "steps": TRAIN_TWIN_STEPS, "microbatches": mb,
+                "max_abs_err_metrics": max(errs.values()),
+                "max_abs_err_params": params, "max_abs_err_nu": nu,
+                "loss": [g["loss"] for g in got],
+                "seconds": time.perf_counter() - t0})
+            log(f"{name} reduced f32 training: card = CPU within "
+                f"{TRAIN_TWIN_TOL} over {TRAIN_TWIN_STEPS} steps (max |d| "
+                f"metrics {max(errs.values()):.3g}, params {params:.3g}, nu "
+                f"{nu:.3g}; microbatches {mb})")
+
+    @staticmethod
+    def train_flops(cfg, params: int, tokens: int, seq: int) -> dict:
+        """Model FLOPs of one train step (6 N D, plus the attention
+        products: every KV block of the blockwise attention, QK and PV,
+        forward and twice backward) and the hardware FLOPs with remat
+        "full" (one more forward)."""
+        attn_fwd = 4 * tokens * seq * cfg.n_heads * cfg.hd * cfg.n_layers
+        model = 6 * params * tokens + 3 * attn_fwd
+        return {"model_flops": model,
+                "hw_flops": model + 2 * params * tokens + attn_fwd}
+
+    def train_full(self):
+        """(b) ``launch.train`` at full size in bf16 with remat "full":
+        TRAIN_STEPS steps checkpointed every TRAIN_CKPT_EVERY; the step-6
+        checkpoint removed (the job died before writing it); a second
+        launch resumes from step 3, and its steps 3-5 and final state equal
+        the first run's bit for bit (deterministic algorithms on: CUDA's
+        embedding and gather backward otherwise add with atomics).  Then
+        one step with remat "dots" for its peak bytes."""
+        import shutil
+        import tempfile
+
+        torch = self.torch
+        t = self.train_modules()
+        cfg = t.configs.get(TRAIN_FULL)
+        n_params = sum(p.numel() for p in
+                       self.lm_modules()[1].Lm(cfg, "meta").parameters())
+        # params, mu and nu widened to f32; two step dirs at once
+        ckpt_bytes = 3 * 4 * n_params
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        free = shutil.disk_usage(tmp).free
+        if free < 2 * ckpt_bytes + (1 << 30):
+            shutil.rmtree(tmp)
+            fail(f"{tmp}: {free:,} bytes free, the checkpoints need "
+                 f"{2 * ckpt_bytes + (1 << 30):,}")
+        argv = [*TRAIN_ARGS, "--ckpt", tmp, "--device", str(self.dev)]
+        row = {"name": TRAIN_FULL, "size": "full", "dtype": cfg.dtype,
+               "remat": cfg.remat, "params": n_params,
+               "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+               "microbatches": TRAIN_MB, "tmp_free_bytes": free}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.use_deterministic_algorithms(True)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            first = t.launch.main(argv)
+            self.sync()
+            row["peak_bytes"] = torch.cuda.max_memory_allocated()
+            shutil.rmtree(os.path.join(
+                tmp, f"step_{TRAIN_STEPS:08d}"))
+            second = t.launch.main(argv)
+            self.sync()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            shutil.rmtree(tmp, ignore_errors=True)
+        a, b = first.out, second.out
+        if b["start_step"] != TRAIN_CKPT_EVERY:
+            fail(f"the second launch resumed at {b['start_step']}, not "
+                 f"{TRAIN_CKPT_EVERY}")
+        hist_a = {h["step"]: h for h in a["history"]}
+        for h in b["history"]:
+            w = hist_a[h["step"]]
+            if (h["loss"], h["grad_norm"]) != (w["loss"], w["grad_norm"]):
+                fail(f"resumed step {h['step']}: loss / grad norm "
+                     f"{h['loss']} / {h['grad_norm']} against the "
+                     f"uninterrupted run's {w['loss']} / {w['grad_norm']}")
+        for (k, p), q in zip(a["params"].named_parameters(),
+                             b["params"].parameters()):
+            if not torch.equal(p, q):
+                fail(f"resumed run's {k} differs from the uninterrupted "
+                     f"run's")
+        for k in ("mu", "nu"):
+            for n, m in a["opt_state"][k].items():
+                if not torch.equal(m, b["opt_state"][k][n]):
+                    fail(f"resumed run's {k} {n} differs")
+        losses = [hist_a[s]["loss"] for s in range(TRAIN_STEPS)]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"non-finite losses {losses}")
+        steady = sorted(hist_a[s]["time_s"] for s in range(1, TRAIN_STEPS))
+        step_s = steady[len(steady) // 2]
+        tokens = TRAIN_SEQ * TRAIN_BATCH
+        flops = self.train_flops(cfg, n_params, tokens, TRAIN_SEQ)
+        row.update({
+            "losses": losses,
+            "step_s": [hist_a[s]["time_s"] for s in range(TRAIN_STEPS)],
+            "resumed_step_s": [h["time_s"] for h in b["history"]],
+            "ms_per_step": step_s * 1e3,
+            "tokens_per_s": tokens / step_s,
+            **flops,
+            "bf16_peak_share": flops["model_flops"] / step_s
+            / BF16_FLOPS_PER_S,
+            "bound_ms": flops["hw_flops"] / BF16_FLOPS_PER_S * 1e3,
+            "bound_by": "operations",
+            "save_s": a["save_s"] + b["save_s"],
+            "restore_s": b["restore_s"], "ckpt_bytes": ckpt_bytes,
+            "resumed_equal": "bit for bit", "seconds_first": first.seconds,
+            "seconds_resumed": second.seconds})
+        del first
+        model, state = b["params"], b["opt_state"]
+        del second, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+        dots = dataclasses.replace(cfg, remat="dots")
+        shape = t.ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+        batch = t.synthetic.batch_for_step(cfg, shape,
+                                           t.synthetic.DataConfig(),
+                                           TRAIN_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = t.loop.build_train_step(dots, t.opt.AdamWConfig(),
+                                    microbatches=TRAIN_MB)(model, state,
+                                                           batch)
+        loss = float(m["loss"])
+        row.update({"dots_peak_bytes": torch.cuda.max_memory_allocated(),
+                    "dots_step_s": time.perf_counter() - t0,
+                    "dots_loss": loss})
+        del model, state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.train_rows.append(row)
+        log(f"{TRAIN_FULL} training: {n_params:,} params, losses "
+            f"{[round(x, 4) for x in losses]}; {row['ms_per_step']:.1f} ms "
+            f"a step ({row['tokens_per_s']:.0f} tokens/s, "
+            f"{row['bf16_peak_share']:.3f} of the bf16 peak, bound "
+            f"{row['bound_ms']:.1f} ms); saves {row['save_s']} s, restore "
+            f"{row['restore_s']:.1f} s; peak "
+            f"{row['peak_bytes'] / 2**30:.2f} GiB (dots "
+            f"{row['dots_peak_bytes'] / 2**30:.2f}); resumed steps 3-5 "
+            f"and state equal bit for bit")
+
+    def train_mesh(self):
+        """(c) The slot mesh on MESH_SLOTS slots of the card, (2 data x 2
+        model): for a reduced dense and MoE config in f32 a train step
+        equal to the ``mesh=None`` step, mesh decode and prefill equal to
+        the single-device ones; a reduced checkpoint restored onto the
+        slots."""
+        import shutil
+        import tempfile
+
+        torch = self.torch
+        t = self.train_modules()
+        lm = self.lm_modules()[1]
+        serve_loop = self.lm_modules()[2]
+        mesh = t.mesh.make_local_mesh(model=2, devices=self.slots())
+        seq, gb = TRAIN_TWIN_SHAPE
+        shape = t.ShapeConfig("twin", seq, gb, "train")
+        for name in TRAIN_MESH:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(t.configs.get(name).reduced(),
+                                      dtype="float32",
+                                      kv_cache_dtype="float32")
+            ocfg = t.opt.AdamWConfig(**TRAIN_OPT)
+            model = lm.init_params(cfg, seed=0, device=self.dev)
+            opt = t.opt.init_opt_state(model, ocfg)
+            params, mopt = t.loop.place_state(cfg, model, opt, mesh)
+            single = t.loop.build_train_step(cfg, ocfg)
+            meshed = t.loop.build_train_step(cfg, ocfg, mesh=mesh,
+                                             shape=shape)
+            errs = []
+            for s in range(2):
+                b = t.synthetic.batch_for_step(cfg, shape,
+                                               t.synthetic.DataConfig(), s)
+                w, g = single(model, opt, b), meshed(params, mopt, b)
+                errs += [self.lm_close(f"{name} mesh step {s} {k}", g[k],
+                                       w[k], TRAIN_TWIN_TOL)
+                         for k in ("loss", "grad_norm")]
+            back, _ = t.loop.gather_state(cfg, params, mopt, self.dev)
+            errs += [self.lm_close(f"{name} mesh step {k}", q, p,
+                                   TRAIN_TWIN_TOL)
+                     for (k, p), q in zip(model.named_parameters(),
+                                          back.parameters())]
+            # serving over the placed parameters
+            sshape = t.ShapeConfig("decode", 32, gb, "decode")
+            toks = torch.from_numpy(self.np.random.default_rng(1).integers(
+                0, cfg.vocab, (gb, 8))).to(self.dev)
+            placed = serve_loop.place_params(cfg, model, mesh)
+            errs.append(self.lm_close(
+                f"{name} mesh prefill",
+                serve_loop.build_prefill(cfg, mesh, sshape)(placed, toks),
+                serve_loop.build_prefill(cfg)(model, toks), TRAIN_TWIN_TOL))
+            cache = lm.init_cache(cfg, gb, 32, self.dev)
+            pcache = serve_loop.place_cache(
+                cfg, lm.init_cache(cfg, gb, 32, self.dev), mesh, sshape)
+            step = serve_loop.build_decode_step(cfg)
+            mstep = serve_loop.build_decode_step(cfg, mesh, sshape)
+            for s in range(4):
+                w, cache = step(model, cache, toks[:, s:s + 1], s)
+                g, pcache = mstep(placed, pcache, toks[:, s:s + 1], s)
+                errs.append(self.lm_close(f"{name} mesh decode {s}", g, w,
+                                          TRAIN_TWIN_TOL))
+            self.sync()
+            self.train_rows.append({
+                "name": name, "size": "reduced", "mesh": list(mesh.sizes),
+                "slots": [str(d) for d in self.slots()],
+                "max_abs_err": max(errs),
+                "seconds": time.perf_counter() - t0})
+            log(f"{name} reduced on a {mesh.sizes} slot mesh: train step, "
+                f"prefill and decode = one device (max |d| {max(errs):.3g})")
+        # a checkpoint saved on one slot restores onto the four
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+        try:
+            t.ckpt.save(tmp, model, 1)
+            shapes = t.convert.jax_shapes(cfg)
+            specs = t.sharding.fix_specs(
+                shapes, t.sharding.param_specs(cfg, shapes, mesh), mesh)
+            placed, step_no = t.ckpt.restore_latest(
+                tmp, lm.Lm(cfg, self.dev), t.sharding.to_shardings(mesh,
+                                                                   specs))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        back = t.sharding.gather_named(cfg, placed, self.dev)
+        for k, p in model.named_parameters():
+            if not torch.equal(back[k], p):
+                fail(f"{name} restored onto {mesh.sizes}: {k} differs")
+        log(f"{name} reduced checkpoint restored onto {mesh.sizes} slots")
+
+    def train_example(self):
+        """(d) ``examples/port/train_lm.py`` as a subprocess."""
+        def check(lines):
+            m = re.search(r"loss: ([\d.]+) \(step (\d+)\) -> ([\d.]+) "
+                          r"\(step (\d+)\)", "\n".join(lines))
+            if m is None:
+                fail(f"train_lm: no loss line in {lines[-3:]}")
+            return {"first_loss": float(m[1]), "last_loss": float(m[3]),
+                    "last_step": int(m[4])}
+        self.launch([("example train_lm", ["examples/port/train_lm.py",
+                                           "--steps",
+                                           str(TRAIN_EXAMPLE_STEPS)],
+                      check)])
+        self.train_rows.append(dict(self.launch_rows[-1]))
+
+    def train_phase(self):
+        """Phase 11: (a) the reduced configs against the CPU, (b) the
+        full-size run and its resume, (c) the slot mesh, (d) the
+        example."""
+        for part, fn in (("a", self.train_twins), ("b", self.train_full),
+                         ("c", self.train_mesh), ("d", self.train_example)):
+            t0 = time.perf_counter()
+            fn()
+            log(f"phase 11 ({part}) took {time.perf_counter() - t0:.1f} s")
 
     def bound(self, nbytes, nops, peak=ALU_OPS_PER_S):
         """The least time for ``nbytes`` moved once and ``nops`` operations
@@ -3234,6 +3598,11 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int,
     t0 = time.perf_counter()
     smoke.lm_phase()
     log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 11: LM training: {TRAIN_FULL} at full size")
+    t0 = time.perf_counter()
+    smoke.train_phase()
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
     return kernel_rows
 
 
@@ -3249,6 +3618,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
+    # cuBLAS's workspace for phase 11's deterministic runs, set before
+    # the first cuBLAS handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3282,6 +3654,7 @@ def main(argv=None) -> None:
     print(json.dumps({"launch": smoke.launch_rows}))
     print(json.dumps({"mesh": smoke.mesh_rows}))
     print(json.dumps({"lm": smoke.lm_rows}))
+    print(json.dumps({"train": smoke.train_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,5 +18,9 @@ mesh serving over a group of device slots (``core/distributed``,
 (``configs``), the models (``models/{layers,moe,mamba2,model}``, with
 ``models/convert`` to load ``repro``'s parameter tree), the synthetic
 token pipeline (``data/synthetic``), the continuous-batching
-``serve.serve_loop.BatchEngine`` and ``python -m repro_torch.launch.serve``.
+``serve.serve_loop.BatchEngine`` and ``python -m repro_torch.launch.serve``;
+and its training path (``train/``: AdamW, the train step with remat and
+microbatches, checkpoints in ``repro``'s format, ``repro``'s sharding
+rules placed on a slot mesh, ``launch/mesh``) with ``python -m
+repro_torch.launch.train``.
 """

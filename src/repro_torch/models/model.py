@@ -21,12 +21,23 @@ Modality stubs (the frontend is a stub):
     concatenated in front of the text-token embeddings; the loss skips the
     prefix positions.
 
-``remat`` is a training knob: the serving path does not read it.
+``cfg.remat`` applies where gradients are recorded (training): ``"none"``
+runs the layers as they are, ``"full"`` recomputes each layer in the
+backward pass (``torch.utils.checkpoint``, non-reentrant), ``"dots"``
+keeps the products with no batch dims (``aten.mm`` / ``addmm``, the
+weight products) and recomputes the rest, repro's
+``dots_with_no_batch_dims_saveable``.  Each dense sub-layer (llama4's
+too, as repro's scan body) and each SSM layer together with the hybrid's
+shared block after it is one unit.  Serving (no grad) ignores it.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -34,6 +45,7 @@ from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
 
 DENSE_FAMILIES = ("dense", "moe", "audio", "vlm")
+AUX_WEIGHT = 0.01  # the MoE load-balance loss's weight in loss_fn
 
 
 def _attn_cfg(cfg: ArchConfig) -> L.AttentionConfig:
@@ -161,6 +173,24 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Lm:
 
 
 # -------------------------------------------------------------- forward ----
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, fn):
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def _dense_layer(cfg: ArchConfig, p: DenseSub, x, positions):
     out, _ = L.attention(p.attn, L.rms_norm(x, p.attn_norm), p.attn.cfg,
                          positions=positions, block_k=cfg.attn_block_k)
@@ -206,26 +236,34 @@ def forward(cfg: ArchConfig, model: Lm, tokens: torch.Tensor | None = None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if cfg.family in DENSE_FAMILIES:
+        body = _remat(cfg, lambda x, p: _dense_layer(cfg, p, x, positions))
         for p in model.layers:
-            x, a = _dense_layer(cfg, p, x, positions)
+            x, a = body(x, p)
             aux = aux + a
     else:  # ssm / hybrid
         ssm_cfg = _ssm_cfg(cfg)
-        for idx, p in enumerate(model.layers):
+
+        def one_layer(x, idx):
+            p = model.layers[idx]
             h, _ = M2.mamba2_block(p.mamba, L.rms_norm(x, p.norm), ssm_cfg)
             x = x + h
             if _applies_attn(cfg, idx):
                 x = _hybrid_shared_block(cfg, model.shared_attn, x, positions)
+            return x
+
+        body = _remat(cfg, one_layer)
+        for idx in range(len(model.layers)):
+            x = body(x, idx)
 
     x = L.rms_norm(x, model.final_norm)
     return L.unembed(model.embed, x), aux
 
 
 def loss_fn(cfg: ArchConfig, model: Lm, batch: dict,
-            aux_weight: float = 0.01):
+            aux_weight: float = AUX_WEIGHT):
     """Next-token CE over token positions (prefix / embeds positions per
     modality rules).  batch keys: tokens and/or embeds, targets, [mask].
-    The forward value only: gradients come with the training path."""
+    Returns (loss, {"ce", "aux"}); differentiable."""
     logits, aux = forward(cfg, model, batch.get("tokens"),
                           batch.get("embeds"))
     targets = batch["targets"]

@@ -8,6 +8,16 @@ starts from a zeroed SSM / conv state.  repro's engine shares one
 ``cache_len`` (the largest cursor) across the batch and never resets a
 slot's state, so there a refilled request's tokens depend on the requests
 that went before it in the same slot.
+
+With a :class:`~repro_torch.launch.mesh.SlotMesh` the built steps take
+the parameters placed on its slots by ``param_specs``
+(``train_loop.place_state`` or :func:`place_params`) and the cache by
+``cache_specs`` (:func:`place_cache`: the batch over the fsdp slots, or
+the sequence where the batch is smaller than the shard count).  Each data
+slot gathers the parameters and computes its rows (the batch stays whole
+on the first where it does not split into whole MoE routing groups); the
+cache is gathered for the step and cut again after it.  The outputs are
+the single-device steps' (logits gathered on the first slot).
 """
 from __future__ import annotations
 
@@ -18,38 +28,105 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.launch.mesh import SlotMesh
 from repro_torch.models import model as M
+from repro_torch.train import sharding as S
 
-_MESH_SLICE = ("serving over a mesh needs train/sharding.py, which comes "
-               "with the training slice (ROADMAP queue 1 step 10b)")
+
+def _check_mesh(mesh, shape):
+    if not isinstance(mesh, SlotMesh) or mesh.devices is None:
+        raise TypeError(f"a mesh is a SlotMesh with devices, got {mesh!r}")
+    if shape is None:
+        raise ValueError("a mesh step needs the serving shape")
+
+
+def place_params(cfg: ArchConfig, model: M.Lm, mesh) -> S.Sharded:
+    """``model``'s parameters placed on ``mesh`` by ``param_specs``."""
+    return S.place_named(cfg, mesh, S.mesh_param_specs(cfg, mesh), model)
+
+
+def place_cache(cfg: ArchConfig, cache: dict, mesh,
+                shape: ShapeConfig) -> S.Sharded:
+    """A decode cache (``model.init_cache``) placed on ``mesh`` by
+    ``cache_specs``."""
+    return S.Sharded.place(mesh, S.cache_specs(cfg, shape, mesh), cache)
+
+
+def _rows(n: int, i: int, b: int) -> slice:
+    return slice(i * b // n, (i + 1) * b // n)
 
 
 def build_decode_step(cfg: ArchConfig, mesh=None,
                       shape: ShapeConfig | None = None) -> Callable:
     """decode_step(model, cache, tokens, cache_len) -> (logits, cache); the
-    cache is updated in place.  ``mesh=None`` only."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_SLICE)
+    cache is updated in place.  With ``mesh``: decode_step(params, cache,
+    ...) over the placed parameters and cache."""
+    if mesh is None:
+        @torch.inference_mode()
+        def step(model, cache, tokens, cache_len):
+            return M.decode_step(cfg, model, cache, tokens, cache_len)
+
+        return step
+
+    _check_mesh(mesh, shape)
+    replicas = S.Replicas(cfg, mesh)
+    home = mesh.first()
 
     @torch.inference_mode()
-    def step(model, cache, tokens, cache_len):
-        return M.decode_step(cfg, model, cache, tokens, cache_len)
+    def mesh_step(params: S.Sharded, cache: S.Sharded, tokens, cache_len):
+        full = cache.gather_all(home)
+        b = tokens.shape[0]
+        batch_axis = next(iter(cache.specs.values()))[1]
+        n = replicas.split(batch_axis, b, tokens.shape[1])
+        per_row = isinstance(cache_len, torch.Tensor) and cache_len.dim() > 0
+        logits = []
+        for i in range(n):
+            rows = _rows(n, i, b)
+            model = replicas.load(i, params)
+            dev = model.device
+            local = {k: v[:, rows].to(dev, copy=True)
+                     for k, v in full.items()}
+            lg, local = M.decode_step(
+                cfg, model, local, tokens[rows].to(dev),
+                cache_len[rows] if per_row else cache_len)
+            for k, v in local.items():
+                full[k][:, rows] = v.to(home)
+            logits.append(lg.to(home))
+        for k, v in full.items():
+            cache.assign(k, v)
+        return torch.cat(logits), cache
 
-    return step
+    return mesh_step
 
 
 def build_prefill(cfg: ArchConfig, mesh=None,
                   shape: ShapeConfig | None = None) -> Callable:
-    """prefill(model, tokens) -> last-position logits.  ``mesh=None``
-    only."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_SLICE)
+    """prefill(model, tokens) -> last-position logits; with ``mesh``:
+    prefill(params, tokens) over the placed parameters."""
+    if mesh is None:
+        @torch.inference_mode()
+        def step(model, tokens):
+            return M.prefill(cfg, model, tokens, max_seq=tokens.shape[1])
+
+        return step
+
+    _check_mesh(mesh, shape)
+    replicas = S.Replicas(cfg, mesh)
+    batch_axis = S.batch_specs(cfg, shape, mesh)["tokens"][0]
 
     @torch.inference_mode()
-    def step(model, tokens):
-        return M.prefill(cfg, model, tokens, max_seq=tokens.shape[1])
+    def mesh_step(params: S.Sharded, tokens):
+        b, l = tokens.shape
+        n = replicas.split(batch_axis, b, l)
+        out = []
+        for i in range(n):
+            model = replicas.load(i, params)
+            out.append(M.prefill(cfg, model,
+                                 tokens[_rows(n, i, b)].to(model.device),
+                                 max_seq=l).to(mesh.first()))
+        return torch.cat(out)
 
-    return step
+    return mesh_step
 
 
 @dataclasses.dataclass

@@ -254,27 +254,10 @@ def _nested(module) -> dict:
     return tree
 
 
-def _stack(trees: list) -> dict:
-    return jax.tree.map(lambda *xs: np.stack(xs), *trees)
-
-
 def repro_tree(cfg, model) -> dict:
-    """The port's weights as repro's tree: per-layer leaves stacked on
-    axis 0 (llama4: ``dense`` on (superblock, sub-layer), ``moe_sub`` on
-    superblock), the hybrid's ``shared_attn`` as one block."""
-    subs = [_nested(sub) for sub in model.layers]
-    tree = {"embed": _numpy(model.embed.detach()),
-            "final_norm": _numpy(model.final_norm.detach())}
-    if cfg.moe is not None and cfg.moe_every > 1:
-        me = cfg.moe_every
-        supers = [subs[i:i + me] for i in range(0, len(subs), me)]
-        tree["layers"] = {"dense": _stack([_stack(sb[:-1]) for sb in supers]),
-                          "moe_sub": _stack([sb[-1] for sb in supers])}
-    else:
-        tree["layers"] = _stack(subs)
-    if cfg.family == "hybrid":
-        tree["shared_attn"] = _nested(model.shared_attn)
-    return tree
+    """The port's weights as repro's tree (``convert.jax_tree_from``), bf16
+    leaves kept as ``jnp.bfloat16``."""
+    return convert.jax_tree_from(cfg, model, leaf=lambda t: _numpy(t.detach()))
 
 
 _BUILT: dict = {}

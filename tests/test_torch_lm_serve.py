@@ -227,7 +227,7 @@ def test_example_serve_lm_runs(capsys):
 def test_mesh_and_missing_cuda_refused(monkeypatch):
     cfg = t_configs.get("tinyllama-1.1b").reduced()
     for build in (t_serve.build_decode_step, t_serve.build_prefill):
-        with pytest.raises(NotImplementedError, match="10b"):
+        with pytest.raises(TypeError, match="SlotMesh"):
             build(cfg, mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
