@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--kron-scale 22] [--road-scale 20]
-                          [--analytics-scale 17] [--launch-scale 16]
-                          [--mesh-scale 18]
+                          [--analytics-scale 17] [--launch-scale 14]
+                          [--mesh-scale 18] [--seed 0]
 
 Run from the root of a checkout; it needs one CUDA device, and nvcc to build
 the kernels.  Phases, each fatal (exit code 1, no result line):
@@ -191,6 +191,23 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    reduced tinyllama and qwen2-moe in f32 two train steps, prefill and
    four decode steps equal to one device; a checkpoint restored onto the
    slots.  (d) ``examples/port/train_lm.py --steps 60`` as a subprocess.
+   The ``{"train"}`` row of (b) also has ``launch.analytic``'s FLOPs of
+   the step beside its own count.
+12. The dry-run and roofline (no kernel of their own).  (a) ``python -m
+   repro_torch.launch.dryrun --mesh both`` for each cell of DRYRUN_CELLS
+   (tinyllama-1.1b train_4k and decode_32k, qwen2-moe-a2.7b train_4k,
+   mamba2-370m long_500k, blest-bfs msbfs_level and ssbfs_row), one
+   subprocess a cell, all at once, ``--hbm-bytes`` the card's memory
+   (the processes trace on ``meta`` and do not open the card): each cell ``status: "ok"``, ``fits`` as its peak bytes against
+   the card's, counted / analytic FLOPs within DRYRUN_RATIO; then
+   ``launch.report`` over them.  (b) Meanwhile, on the card, one slot's
+   ``msbfs_level`` state at blest-bfs's geometry (n = 64M, N_v = 4M, tau
+   = 128, sigma = 8, kappa = 16, a random BVSS and 0/1 state from
+   ``--seed``): one dense byteplane level through ``pull_ms`` (its
+   launches counted), the scatter-max and stage 2, held bit for bit
+   against the plain versions on its first LEVEL_CHECK_VSS VSSs, and
+   timed beside ``roofline_terms(bfs_cell_cost("msbfs_level", ...,
+   chips=1))``.
 
 Prints, before the last line: the card's name and power limit (as
 nvidia-smi gives them), one JSON line ``{"kernels": [...]}`` (launches on the
@@ -232,8 +249,12 @@ agreement), and one JSON line ``{"train": [...]}`` (per reduced config
 of phase 11 (a) the card's max |d| from the CPU; for (b) params, losses,
 ms per step, tokens/s, model and hardware FLOPs, the bf16 peak share and
 bound, save and restore seconds, peak bytes with remat "full" and
-"dots"; per (c) config the max |d| from one device; (d)'s run).  The
-last line is ``{"ok": true, "device": {...}}``.
+"dots"; per (c) config the max |d| from one device; (d)'s run), and
+one JSON line ``{"dryrun": {...}}`` (phase 12: per cell and mesh the
+trace seconds, analytic and counted FLOPs, fits, peak and argument
+bytes, collective wire bytes and roofline; the level's ms, pull_ms's
+ms, bound, state and peak bytes; the phase's seconds).  The last line
+is ``{"ok": true, "device": {...}}``.
 
 Edges/s is the number of directed edges (u, v) of the graph whose source u
 was reached, over the wall time of one ``Blest.bfs`` call (which includes
@@ -261,13 +282,19 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32 rate of
-# the CUDA cores (the highest rate any of these integer kernels could issue
-# at), and the dense int8 tensor-core rate (the MMA-form pulls' products)
-HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
-INT8_MMA_OPS_PER_S = 1979e12
+sys.path.insert(0, str(SRC))
+try:
+    # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the float32 rate
+    # of the CUDA cores (the highest rate any of these integer kernels could
+    # issue at), the dense int8 tensor-core rate (the MMA-form pulls'
+    # products) and the dense bf16 rate
+    from repro_torch.launch.roofline import (ALU_OPS_PER_S, BF16_FLOPS_PER_S,
+                                             HBM_BYTES_PER_S,
+                                             INT8_MMA_OPS_PER_S)
+except ModuleNotFoundError:
+    print(f"chip_smoke: FAILED: {SRC / 'repro_torch'} not found: run from a "
+          f"checkout", file=sys.stderr, flush=True)
+    sys.exit(1)
 # (n, sigma, tau): the pool of tests/test_kernel_parity.py, plus wide tau
 SHAPES = ((3, 8, 1), (8, 8, 2), (12, 4, 2), (9, 2, 4), (21, 2, 1), (33, 8, 2),
           (19, 4, 4), (24, 8, 2))
@@ -366,7 +393,14 @@ TRAIN_ARGS = ("--arch", TRAIN_FULL, "--seq-len", str(TRAIN_SEQ),
               str(TRAIN_CKPT_EVERY), "--log-every", "1")
 TRAIN_MESH = ("tinyllama-1.1b", "qwen2-moe-a2.7b")  # (c): dense and MoE
 TRAIN_EXAMPLE_STEPS = 60
-BF16_FLOPS_PER_S = 989e12    # the H100's dense bf16 peak
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"), ("tinyllama-1.1b",
+                                                 "decode_32k"),
+                ("qwen2-moe-a2.7b", "train_4k"), ("mamba2-370m", "long_500k"),
+                ("blest-bfs", "msbfs_level"), ("blest-bfs", "ssbfs_row"))
+DRYRUN_MESHES = ("16x16", "2x16x16")
+DRYRUN_RATIO = (0.9, 1.25)   # counted / analytic FLOPs of every cell
+DRYRUN_TIMEOUT = 300         # seconds for all of phase 12 (a)'s processes
+LEVEL_CHECK_VSS = 65536      # (b): VSSs of the level held bit for bit
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -513,6 +547,7 @@ class Smoke:
         self.mesh_rows: list[dict] = []
         self.lm_rows: list[dict] = []
         self.train_rows: list[dict] = []
+        self.dryrun_rows: dict = {}
         self.ms_closeness: dict = {}  # label -> (bd sources, far, reach)
         self.state_builds: list[tuple] = []  # (graph, kind, seconds)
         self.instrument_state_builds()
@@ -3256,7 +3291,12 @@ class Smoke:
         step_s = steady[len(steady) // 2]
         tokens = TRAIN_SEQ * TRAIN_BATCH
         flops = self.train_flops(cfg, n_params, tokens, TRAIN_SEQ)
+        from repro_torch.launch import analytic
+        cost = analytic.cell_cost(cfg, t.ShapeConfig(
+            "train", TRAIN_SEQ, TRAIN_BATCH, "train"))
         row.update({
+            "analytic_flops": cost.flops,
+            "analytic_forward_flops": cost.detail["forward_flops"],
             "losses": losses,
             "step_s": [hist_a[s]["time_s"] for s in range(TRAIN_STEPS)],
             "resumed_step_s": [h["time_s"] for h in b["history"]],
@@ -3298,7 +3338,9 @@ class Smoke:
             f"{[round(x, 4) for x in losses]}; {row['ms_per_step']:.1f} ms "
             f"a step ({row['tokens_per_s']:.0f} tokens/s, "
             f"{row['bf16_peak_share']:.3f} of the bf16 peak, bound "
-            f"{row['bound_ms']:.1f} ms); saves {row['save_s']} s, restore "
+            f"{row['bound_ms']:.1f} ms; hardware FLOPs {flops['hw_flops']:.4g}"
+            f" here, {cost.flops:.4g} by launch.analytic's closed form); "
+            f"saves {row['save_s']} s, restore "
             f"{row['restore_s']:.1f} s; peak "
             f"{row['peak_bytes'] / 2**30:.2f} GiB (dots "
             f"{row['dots_peak_bytes'] / 2**30:.2f}); resumed steps 3-5 "
@@ -3415,6 +3457,176 @@ class Smoke:
             fn()
             log(f"phase 11 ({part}) took {time.perf_counter() - t0:.1f} s")
 
+    # ---------------------------------- phase 12: dry-run and roofline --
+    def dryrun_start(self, out_dir, hbm: int):
+        """(a) One ``launch.dryrun --mesh both --hbm-bytes hbm``
+        subprocess a cell of DRYRUN_CELLS, all started at once; they trace
+        on ``meta`` and never open the card."""
+        env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+        return [(arch, shape, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "both", "--out",
+             str(out_dir), "--hbm-bytes", str(hbm)], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for arch, shape in DRYRUN_CELLS]
+
+    def dryrun_finish(self, procs, out_dir, hbm: int, t0):
+        """(a) Each cell's process exits 0 within DRYRUN_TIMEOUT of ``t0``;
+        each cell's JSON says ``status: "ok"``, ``fits`` as its peak bytes
+        against the card's ``hbm``, counted / analytic FLOPs within
+        DRYRUN_RATIO and a finite roofline bound; ``launch.report``
+        renders them all."""
+        try:
+            for arch, shape, proc in procs:
+                left = max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0))
+                try:
+                    _, err = proc.communicate(timeout=left)
+                except subprocess.TimeoutExpired:
+                    fail(f"dryrun {arch} {shape}: no exit within "
+                         f"{DRYRUN_TIMEOUT} s")
+                if proc.returncode != 0:
+                    fail(f"dryrun {arch} {shape}: exit code "
+                         f"{proc.returncode}: {err.strip()[-2000:]}")
+        finally:
+            for *_, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        cells = []
+        for arch, shape, _ in procs:
+            for mesh in DRYRUN_MESHES:
+                c = json.loads((out_dir / f"{arch}__{shape}__{mesh}.json")
+                               .read_text())
+                m, what = c["memory"], f"dryrun {arch} {shape} {mesh}"
+                ratio = c["counted_flops"] / c["flops"]
+                if c["status"] != "ok":
+                    fail(f"{what}: status {c['status']}")
+                if m["hbm_bytes"] != hbm:
+                    fail(f"{what}: hbm_bytes {m['hbm_bytes']}, the card "
+                         f"has {hbm}")
+                if m["fits"] != (m["peak_bytes"] <= m["hbm_bytes"]):
+                    fail(f"{what}: fits {m['fits']} for {m['peak_bytes']} "
+                         f"of {m['hbm_bytes']} bytes")
+                if not DRYRUN_RATIO[0] <= ratio <= DRYRUN_RATIO[1]:
+                    fail(f"{what}: counted / analytic FLOPs {ratio}")
+                if not 0 < c["roofline"]["bound_s"] < math.inf:
+                    fail(f"{what}: roofline {c['roofline']}")
+                cells.append({
+                    "arch": arch, "shape": shape, "mesh": mesh,
+                    "trace_s": c["trace_s"], "flops": c["flops"],
+                    "counted_flops": c["counted_flops"],
+                    "counted_ratio": ratio, "fits": m["fits"],
+                    "peak_bytes": m["peak_bytes"],
+                    "argument_bytes": m["argument_bytes"],
+                    "collective_wire_bytes": c["collectives"]["wire_bytes"],
+                    "roofline": c["roofline"]})
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.report", "--out",
+             str(out_dir)], cwd=ROOT, env=dict(os.environ,
+                                              PYTHONPATH=str(SRC)),
+            capture_output=True, text=True, timeout=120)
+        want = f"{len(cells)}/{len(cells)} cells ok"
+        if out.returncode != 0 or not out.stdout.startswith(want):
+            fail(f"launch.report: exit code {out.returncode}, "
+                 f"{out.stdout[:200]!r} {out.stderr.strip()[-2000:]}")
+        for line in out.stdout.strip().splitlines():
+            log(f"report | {line}")
+        return cells
+
+    def dryrun_level(self, seed: int) -> dict:
+        """(b) One slot's ``msbfs_level`` state at blest-bfs's geometry on
+        the card (a random BVSS and 0/1 state from ``seed``): one dense
+        byteplane level through kernel 4 (``pull_ms``), the scatter-max
+        and stage 2, held bit for bit against the plain versions on its
+        first LEVEL_CHECK_VSS VSSs, timed beside its roofline bound."""
+        torch = self.torch
+        from repro_torch.launch import analytic, dryrun, roofline
+
+        name = "msbfs_level"
+        geo = dryrun.Geometry.blest()
+        n, nv, tau, sigma = geo.n, geo.nv, geo.tau, geo.sigma
+        kappa, num_sets = dryrun.bfs_kappa(name), geo.n // geo.sigma
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(seed)
+
+        def rand(high, shape, dtype):
+            return torch.randint(0, high, shape, dtype=dtype, generator=gen,
+                                 device=self.dev)
+
+        u8, i32 = torch.uint8, torch.int32
+        f = (rand(64, (num_sets + 1, sigma, kappa), u8) == 0).to(u8)
+        f[-1] = 0
+        args = (rand(256, (nv, tau), u8), rand(n, (nv, tau), i32),
+                rand(num_sets, (nv,), i32),
+                torch.arange(nv, dtype=i32, device=self.dev),
+                (rand(16, (n + sigma, kappa), u8) == 0).to(u8), f,
+                torch.zeros(n + sigma, dtype=i32, device=self.dev),
+                torch.tensor(3, dtype=i32, device=self.dev))
+        state_bytes = sum(t.numel() * t.element_size() for t in args)
+        level = dryrun.bfs_level(name, geo, pull_ms=self.ops.pull_ms)
+        plain = dryrun.bfs_level(name, geo)
+        self.sync()
+        self.ops.reset_launch_counts()
+        out = level(*args)
+        self.sync()
+        launches = self.ops.launch_counts()["pull_ms"]
+        if launches == 0:
+            fail("dryrun level: pull_ms never launched")
+        del out
+        part = tuple(t[:LEVEL_CHECK_VSS] for t in args[:4]) + args[4:]
+        for what, got, want in zip(("v_next", "f", "far"), level(*part),
+                                   plain(*part)):
+            self.same("pull_ms", got, want, f"dryrun level {name} {what}, "
+                      f"first {LEVEL_CHECK_VSS} VSSs")
+        torch.cuda.reset_peak_memory_stats()
+        level_ms = self.time_ms(lambda: level(*args), iters=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        pull_ms = self.time_ms(lambda: self.ops.pull_ms(
+            args[0], f, args[2], sigma=sigma), iters=3, warmup=1)
+        cost = analytic.bfs_cell_cost(name, n, nv, tau, sigma, chips=1)
+        terms = roofline.roofline_terms(cost.flops, cost.hbm_bytes, 0.0, 1)
+        row = {"cell": name, "n": n, "nv": nv, "tau": tau, "sigma": sigma,
+               "kappa": kappa, "seed": seed, "state_bytes": state_bytes,
+               "peak_bytes": peak, "pull_ms_launches": launches,
+               "checked_vss": LEVEL_CHECK_VSS, "equal": "bit for bit",
+               "level_ms": level_ms, "pull_ms_ms": pull_ms,
+               "bound_ms": terms["bound_s"] * 1e3,
+               "bound_by": terms["dominant"], "roofline": terms,
+               "analytic_flops": cost.flops,
+               "analytic_hbm_bytes": cost.hbm_bytes}
+        del args, f
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"dryrun level {name} on the card: {level_ms:.2f} ms (pull_ms "
+            f"{pull_ms:.2f} ms) against the roofline bound "
+            f"{row['bound_ms']:.3f} ms ({terms['dominant']}); state "
+            f"{state_bytes / 2**30:.2f} GiB, peak {peak / 2**30:.2f} GiB; "
+            f"equal to the plain versions on {LEVEL_CHECK_VSS} VSSs")
+        return row
+
+    def dryrun_phase(self, seed: int) -> None:
+        """Phase 12: (a)'s dry-run processes run while (b) runs on the
+        card."""
+        import tempfile
+
+        t0 = time.perf_counter()
+        hbm = self.torch.cuda.get_device_properties(0).total_memory
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+            out_dir = pathlib.Path(d)
+            procs = self.dryrun_start(out_dir, hbm)
+            try:
+                level = self.dryrun_level(seed)
+            except BaseException:      # fail() exits: stop (a)'s processes
+                for *_, proc in procs:
+                    proc.kill()
+                    proc.communicate()
+                raise
+            t1 = time.perf_counter()
+            cells = self.dryrun_finish(procs, out_dir, hbm, t0)
+        self.dryrun_rows.update(cells=cells, level=level,
+                                level_s=t1 - t0,
+                                seconds=time.perf_counter() - t0)
+
     def bound(self, nbytes, nops, peak=ALU_OPS_PER_S):
         """The least time for ``nbytes`` moved once and ``nops`` operations
         at ``peak``, and which of the two sets it."""
@@ -3440,7 +3652,7 @@ def nvidia_smi() -> str:
 
 def run(smoke: Smoke, kron_scale: int, road_scale: int,
         analytics_scale: int = 17, launch_scale: int = LAUNCH_SCALE,
-        mesh_scale: int = MESH_SERVE_SCALE) -> list[dict]:
+        mesh_scale: int = MESH_SERVE_SCALE, seed: int = 0) -> list[dict]:
     ops, graphs, Blest = smoke.ops, smoke.graphs, smoke.Blest
 
     log("phase 2: kernels against their plain versions over the shape pool")
@@ -3603,6 +3815,12 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int,
     t0 = time.perf_counter()
     smoke.train_phase()
     log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+
+    log(f"phase 12: dry-run of {len(DRYRUN_CELLS)} cells, and one "
+        f"msbfs_level on the card")
+    t0 = time.perf_counter()
+    smoke.dryrun_phase(seed)
+    log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
     return kernel_rows
 
 
@@ -3615,6 +3833,8 @@ def main(argv=None) -> None:
                     help="cap on the scales of phase 8's launcher runs")
     ap.add_argument("--mesh-scale", type=int, default=MESH_SERVE_SCALE,
                     help="kron scale of phase 9's mesh engines")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 12's random BVSS and state")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -3625,7 +3845,6 @@ def main(argv=None) -> None:
 
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
-    sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
 
     smi = nvidia_smi()
@@ -3642,7 +3861,7 @@ def main(argv=None) -> None:
     smoke = Smoke(torch.device("cuda"))
     kernel_rows = run(smoke, args.kron_scale, args.road_scale,
                       args.analytics_scale, args.launch_scale,
-                      args.mesh_scale)
+                      args.mesh_scale, args.seed)
     print(smi)
     print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"bfs": smoke.bfs_rows}))
@@ -3655,6 +3874,7 @@ def main(argv=None) -> None:
     print(json.dumps({"mesh": smoke.mesh_rows}))
     print(json.dumps({"lm": smoke.lm_rows}))
     print(json.dumps({"train": smoke.train_rows}))
+    print(json.dumps({"dryrun": smoke.dryrun_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,5 +22,7 @@ token pipeline (``data/synthetic``), the continuous-batching
 and its training path (``train/``: AdamW, the train step with remat and
 microbatches, checkpoints in ``repro``'s format, ``repro``'s sharding
 rules placed on a slot mesh, ``launch/mesh``) with ``python -m
-repro_torch.launch.train``.
+repro_torch.launch.train``; and the dry-run of every cell on ``meta``
+tensors with its roofline on the H100's constants (``python -m
+repro_torch.launch.dryrun`` / ``.report``).
 """

@@ -247,21 +247,29 @@ def _chunk(coord, ax, mesh) -> tuple[int, int]:
     return idx, n
 
 
+def piece(leaf: torch.Tensor, spec, mesh, coord) -> torch.Tensor:
+    """The piece of ``leaf`` that ``spec`` gives the slot at ``coord``,
+    as a view (a dim sharded over axes of k slots in chunks of
+    ceil(n / k)); on a ``meta`` leaf, its shape alone."""
+    t = leaf
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            continue
+        i, n = _chunk(coord, ax, mesh)
+        size = -(-t.shape[dim] // n)
+        lo = min(i * size, t.shape[dim])
+        t = t.narrow(dim, lo, min(size, t.shape[dim] - lo))
+    return t
+
+
 def shard(leaf: torch.Tensor, spec, mesh) -> np.ndarray:
     """``leaf`` cut by ``spec``: an object array of the mesh's shape whose
     entry at a coordinate is that slot's piece, a copy on its device."""
     pieces = np.empty(mesh.sizes, dtype=object)
     for coord in np.ndindex(*mesh.sizes):
-        t = leaf
-        for dim, ax in enumerate(spec):
-            if ax is None:
-                continue
-            i, n = _chunk(coord, ax, mesh)
-            size = -(-t.shape[dim] // n)
-            lo = min(i * size, t.shape[dim])
-            t = t.narrow(dim, lo, min(size, t.shape[dim] - lo))
-        pieces[coord] = t.to(mesh.devices[coord], copy=True,
-                             memory_format=torch.contiguous_format)
+        pieces[coord] = piece(leaf, spec, mesh, coord).to(
+            mesh.devices[coord], copy=True,
+            memory_format=torch.contiguous_format)
     return pieces
 
 
@@ -357,6 +365,21 @@ def data_slots(mesh) -> list:
                              for a in mesh.axis_names]))
 
 
+def split_count(cfg: ArchConfig, slots: int, batch_axis, rows: int,
+                seq: int) -> int:
+    """Into how many data shards a batch of ``rows`` x ``seq`` positions
+    splits over ``slots`` data slots: every data slot where the batch
+    spec shards the batch, the rows divide and every shard holds whole
+    MoE routing groups (``moe_layer`` routes ``group_size`` tokens
+    together), else 1."""
+    if batch_axis is None or slots <= 1 or rows % slots:
+        return 1
+    moe = cfg.moe
+    if moe is not None and rows // slots * seq % moe.group_size:
+        return 1
+    return slots
+
+
 class Replicas:
     """One model a data slot, for the compute of a placed state: each
     :meth:`load` gathers the parameters onto the slot."""
@@ -368,17 +391,9 @@ class Replicas:
 
     def split(self, batch_axis, rows: int, seq: int) -> int:
         """Into how many data shards a batch of ``rows`` x ``seq``
-        positions splits: every data slot where the batch spec shards the
-        batch, the rows divide and every shard holds whole MoE routing
-        groups (``moe_layer`` routes ``group_size`` tokens together), else
-        1."""
-        n = len(self.slots)
-        if batch_axis is None or n <= 1 or rows % n:
-            return 1
-        moe = self.cfg.moe
-        if moe is not None and rows // n * seq % moe.group_size:
-            return 1
-        return n
+        positions splits (:func:`split_count` over this mesh's data
+        slots)."""
+        return split_count(self.cfg, len(self.slots), batch_axis, rows, seq)
 
     def load(self, i: int, params: Sharded) -> M.Lm:
         """Data slot ``i``'s model holding ``params``, gathered."""
