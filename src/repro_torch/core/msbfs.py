@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.blest import (FUSED_WINDOW, UNREACHED, BvssDevice,
                                     bucket_size, clamp_int32,
                                     expand_active_sets)
@@ -152,13 +153,15 @@ class FusedMsBfs:
         bd = self.bd
         if len(sources) != self.kappa:
             raise ValueError(f"want {self.kappa} sources, got {len(sources)}")
-        fresh = init_ms_state(bd, sources, track_levels=self.track_levels)
-        if self.state is None:
-            self.state = fresh
-        else:
-            for buf, x in zip(self.state, fresh):
-                if isinstance(buf, torch.Tensor):
-                    buf.copy_(x)
+        with spans.span("msbfs.init"):
+            fresh = init_ms_state(bd, sources,
+                                  track_levels=self.track_levels)
+            if self.state is None:
+                self.state = fresh
+            else:
+                for buf, x in zip(self.state, fresh):
+                    if isinstance(buf, torch.Tensor):
+                        buf.copy_(x)
         max_levels = bd.n_ext if max_levels is None else max_levels
         self._max.fill_(clamp_int32(max_levels))
         self.window.ell.fill_(1)

@@ -19,6 +19,7 @@ import time
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core import blest, closeness as closeness_mod, msbfs
 from repro_torch.core import reorder as reorder_mod, switching
 from repro_torch.core.bvss import Bvss, BvssConfig, build_bvss
@@ -107,23 +108,28 @@ class Blest:
     def bfs(self, src: int, *, mode: str = "fused", lazy: bool | None = None,
             packed: bool = True) -> np.ndarray:
         """Level array in original vertex ids."""
-        lazy = self.stats.lazy if lazy is None else lazy
-        s = int(self.perm[src])
-        if mode == "fused":
-            runner = self._fused.get((lazy, packed))
-            if runner is None:
-                runner = self._fused[lazy, packed] = blest.FusedBfs(
-                    self.bd, lazy=lazy, packed=packed)
-            lv = runner(s)
-        elif mode == "bucketed":
-            eta = self.eta if self.stats.switching_enabled in (None, True) \
-                else None
-            runner = blest.BucketedBfs(self.bd, lazy=lazy, packed=packed,
-                                       eta=eta)
-            lv = runner(s)
-        else:
-            raise ValueError(mode)
-        return lv.cpu().numpy()[self.perm]
+        with spans.span("blest.bfs"):
+            lazy = self.stats.lazy if lazy is None else lazy
+            s = int(self.perm[src])
+            if mode == "fused":
+                runner = self._fused.get((lazy, packed))
+                if runner is None:
+                    runner = self._fused[lazy, packed] = blest.FusedBfs(
+                        self.bd, lazy=lazy, packed=packed)
+                lv = runner(s)
+            elif mode == "bucketed":
+                eta = self.eta if self.stats.switching_enabled in (
+                    None, True) else None
+                runner = blest.BucketedBfs(self.bd, lazy=lazy, packed=packed,
+                                           eta=eta)
+                lv = runner(s)
+            else:
+                raise ValueError(mode)
+            with spans.span("host_end"):
+                with spans.span("host_end.to_host"):
+                    lv = lv.cpu().numpy()
+                with spans.span("host_end.permute"):
+                    return lv[self.perm]
 
     def msbfs(self, sources: np.ndarray, *, track_levels: bool = True):
         """(len(sources), n) level matrix in original ids; with
@@ -147,5 +153,7 @@ class Blest:
     def closeness(self, kappa: int = 256, **kw) -> np.ndarray:
         """Closeness of every vertex in original ids; ``kw`` go to
         :func:`closeness_mod.closeness` (``sources`` in bd ids)."""
-        cc = closeness_mod.closeness(self.bd, kappa=kappa, **kw)
-        return cc[self.perm]
+        with spans.span("blest.closeness"):
+            cc = closeness_mod.closeness(self.bd, kappa=kappa, **kw)
+            with spans.span("host_end"), spans.span("host_end.permute"):
+                return cc[self.perm]

@@ -43,7 +43,11 @@ fallback.  ``body`` must not synchronise (no ``.item()``, ``.cpu()``,
 
 Launch counts (:func:`repro_torch.kernels.ops.launch_counts`): a capture
 launches nothing, so the kernels ``body`` calls are tallied at capture and
-:meth:`credit` adds them once for each level that ran.
+:meth:`credit` adds them once for each level that ran.  Beside that credit
+:meth:`run_until_done` adds the same levels to the counter
+``window.levels`` of :mod:`repro_torch.spans`, inside its span
+``window.run``; a capture that really captures is the span
+``window.capture``.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ import weakref
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 
 
@@ -98,21 +103,23 @@ class LevelWindow:
         window).  Synchronises the device, so it stays out of :meth:`run`."""
         if self.device.type != "cuda" or self._graph is not None:
             return
-        lib = _build.library("blest_graph")
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_reserved(self.device)
-        body = torch.cuda.CUDAGraph(keep_graph=True)
-        with _build.tally_captures() as tally, torch.cuda.device(
-                self.device), torch.cuda.graph(
-                    body, capture_error_mode="thread_local"):
-            self._body()()
-        graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
-        _build.check(lib, lib.blest_if_graph(
-            self.go.data_ptr(), body.raw_cuda_graph(), ctypes.byref(graph),
-            ctypes.byref(exe)), "blest_if_graph")
-        self._graph, self._tally = (body, graph.value, exe.value), tally
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
+        with spans.span("window.capture"):
+            lib = _build.library("blest_graph")
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_reserved(self.device)
+            body = torch.cuda.CUDAGraph(keep_graph=True)
+            with _build.tally_captures() as tally, torch.cuda.device(
+                    self.device), torch.cuda.graph(
+                        body, capture_error_mode="thread_local"):
+                self._body()()
+            graph, exe = ctypes.c_void_p(), ctypes.c_void_p()
+            _build.check(lib, lib.blest_if_graph(
+                self.go.data_ptr(), body.raw_cuda_graph(),
+                ctypes.byref(graph), ctypes.byref(exe)), "blest_if_graph")
+            self._graph, self._tally = (body, graph.value, exe.value), tally
+            self.pool_bytes = (torch.cuda.memory_reserved(self.device)
+                               - before)
 
     def upload(self, dst: torch.Tensor, array) -> None:
         """Stages ``array`` for a copy into ``dst`` at the next :meth:`run`
@@ -162,16 +169,18 @@ class LevelWindow:
         """Windows of ``length`` levels until ``go`` is false, reading
         ``(ell, go)`` once a window; ``ell0`` is the value ``start`` leaves
         in ``ell``, and each level adds one.  Returns the final ``ell``."""
-        self.capture()
-        ell = ell0
-        while True:
-            self.run(length)
-            ell_now, go = torch.stack(
-                (self.ell, self.go.to(torch.int32))).tolist()
-            self.credit(ell_now - ell)
-            ell = ell_now
-            if not go:
-                return ell
+        with spans.span("window.run"):
+            self.capture()
+            ell = ell0
+            while True:
+                self.run(length)
+                ell_now, go = torch.stack(
+                    (self.ell, self.go.to(torch.int32))).tolist()
+                self.credit(ell_now - ell)
+                spans.count("window.levels", ell_now - ell)
+                ell = ell_now
+                if not go:
+                    return ell
 
     def __del__(self):
         if getattr(self, "_graph", None) is not None and not (
