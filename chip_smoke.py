@@ -69,7 +69,10 @@ the kernels.  Phases, each fatal (exit code 1, no result line):
    chunks of VSSs where its int32 counts would not fit), and times (the MMA
    pull also as a replayed CUDA graph's device time, and its tensor-core
    form held and timed beside it with its mma.sync count and rate); and one
-   dense multi-source level, stage by stage, in both layouts.
+   dense multi-source level, stage by stage, in both layouts, the
+   byteplane level's combine held against torch's amax and kernel 6 timed
+   on its word views beside its byte bound.  ``scatter_or``'s launches
+   count both layouts' (the byteplane combine's and the packed level's).
 4. The high-diameter family: road (2-D grid) scale 20, automatic reorder
    dispatch (RCM), fused and bucketed runs equal to the oracle; one batch of
    32 sources through ``Blest.msbfs`` and ``PackedMsBfs(kernel="gather")``,
@@ -223,7 +226,9 @@ JSON line
 ``{"bfs": [...]}`` (ms, edges/s and
 depth per BFS; per-stage ms of one dense level) and one JSON line
 ``{"msbfs": [...]}`` (per multi-source run: graph, layout, kappa, levels,
-ms, lane-edges/s; per-stage ms of one dense multi-source level) and one
+ms, lane-edges/s; per-stage ms of one dense multi-source level, and for
+the byteplane one ``scatter_or``: kernel 6 on its word views, kw, bytes,
+ms, bound) and one
 JSON line ``{"serve": [...]}`` (per engine: graph, layout, switching,
 kappa, megatick, windows that ran a level (``megaticks``), host syncs and
 syncs per level, the largest window graph's memory pool, tickets, build
@@ -1513,8 +1518,11 @@ class Smoke:
         kappa = st.v_curr.shape[1]
         rows = bd.row_ids.reshape(-1)
         marks = ops.pull_ms(bd.masks, st.f_planes, bd.v2r, sigma=bd.sigma)
-        v_next = st.v_curr.clone().index_reduce_(
-            0, rows, marks.reshape(-1, kappa), "amax")
+        v_next = ms.combine_marks(st.v_curr, bd.rows32,
+                                  marks.reshape(-1, kappa))
+        self.same("scatter_or", v_next, st.v_curr.clone().index_reduce_(
+            0, rows, marks.reshape(-1, kappa), "amax"),
+            "byteplane level's combine on word views, against the amax")
 
         def stage2():
             diff = v_next & (1 - st.v_curr)
@@ -1530,7 +1538,7 @@ class Smoke:
             "v_curr", "f_planes", "far", "reach")})
 
         def level():
-            ms._ms_step(bd, st_l, bd.masks, bd.row_ids, bd.v2r, st.ell,
+            ms._ms_step(bd, st_l, bd.masks, bd.rows32, bd.v2r, st.ell,
                         track_levels=False)
             return st_l
 
@@ -1539,15 +1547,28 @@ class Smoke:
                                            sigma=bd.sigma),
             "index_reduce_amax": lambda: st.v_curr.clone().index_reduce_(
                 0, rows, marks.reshape(-1, kappa), "amax"),
+            "combine_marks": lambda: ms.combine_marks(
+                st.v_curr, bd.rows32, marks.reshape(-1, kappa)),
             "stage2": stage2,
             "level": level,
             "level_with_flag_read": lambda: bool(level().f_planes.any()),
         }
+        # kernel 6 at the combine's shape (kw = kappa / 4 words a row):
+        # its bytes, bound and time beside the packed level's (kw = 8)
+        i32 = torch.int32
+        (wv, wrows, wmarks), nbytes, nops, peak = self.scatter_cell(
+            st.v_curr.view(i32), bd.rows32, marks.reshape(-1, kappa).view(i32))
+        word_or = {"kw": wmarks.shape[1], "bytes": nbytes,
+                   "ms": self.time_ms(lambda: ops.scatter_or(
+                       wv, wrows, wmarks), iters=5, warmup=1),
+                   **self.bound(nbytes, nops, peak)}
         self.ms_rows.append({
             "graph": "level", "layout": "byteplane", "kappa": kappa,
             "depth": 2, "stage_ms": {k: self.time_ms(f, iters=5, warmup=1)
-                                     for k, f in byte.items()}})
-        log(f"one dense byteplane MS level: {self.ms_rows[-1]['stage_ms']}")
+                                     for k, f in byte.items()},
+            "scatter_or": word_or})
+        log(f"one dense byteplane MS level: {self.ms_rows[-1]['stage_ms']}; "
+            f"scatter_or on its word views {word_or}")
         tiles = runner._mma_tiles
         pmarks = ops.pull_ms_packed(bd.masks, fp, bd.v2r, sigma=bd.sigma)
         kw = fp.shape[2]

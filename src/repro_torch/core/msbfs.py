@@ -6,11 +6,18 @@ max-scatter is the OR that combines the marks of duplicate rows.  The pull
 is the (popc, AND) product of :func:`repro_torch.kernels.ops.pull_ms`: per
 VSS, (tau x sigma) unpacked masks @ (sigma x kappa) frontier bit-planes.
 
-The scatter of marks into the visited bytes stays a torch op, as it was an
-XLA op outside any kernel in the reference: ``index_reduce_(..., "amax")``
-over the 1-D int64 ``bd.row_ids``.  Slots with a zero mask (whose rows the
-port spreads over ``n_ext``) mark nothing on any lane, so the spread is
-exact here too.
+The scatter of marks into the visited bytes (an XLA max-scatter in the
+reference) is kernel 6, :func:`repro_torch.kernels.ops.scatter_or`, on
+32-bit word views of both byteplanes (:func:`combine_marks`).  Its
+precondition: every visited byte and every mark is 0 or 1 (``pull_ms``
+ends each mark in ``nonzero_bytes``; the state holds no other byte), and on
+such bytes max is OR, so a word's OR is the bytewise max of its four lanes.
+Where kappa % 4 != 0 no word view exists, and on the CPU the byte max is
+cheaper than kernel 6's plain version: there the combine stays torch's
+``index_reduce_(..., "amax")``.  Both take the flat int32 rows
+``bd.rows32``.  Slots with a zero mask (whose rows the port spreads over
+``n_ext``) mark nothing on any lane, so the spread is exact here too, and
+kernel 6 skips their all-zero words.
 
 activeSets / dirtySets (paper §6.1): in the fused driver both are implicit —
 inactive slice sets contribute all-zero frontier tiles.  The bucketed driver
@@ -84,16 +91,30 @@ def init_ms_state(bd: BvssDevice, sources, *,
     )
 
 
+def combine_marks(v_curr: torch.Tensor, rows: torch.Tensor,
+                  marks: torch.Tensor) -> torch.Tensor:
+    """A new (n_ext, kappa) uint8 tensor: ``v_curr`` with the marks
+    (t, kappa) uint8 max-combined into rows ``rows`` (t,) int32, duplicates
+    included.  Every byte of ``v_curr`` and ``marks`` must be 0 or 1."""
+    # no 32-bit word view of a row where kappa % 4; on the CPU the byte
+    # amax is the cheaper twin (kernel 6's plain version unpacks each bit)
+    if v_curr.shape[1] % 4 or not v_curr.is_cuda:
+        return v_curr.clone().index_reduce_(0, rows, marks, "amax")
+    # on 0/1 bytes max is OR, so kernel 6 ORs in whole words of four lanes
+    return ops.scatter_or(v_curr.view(torch.int32), rows,
+                          marks.view(torch.int32)).view(torch.uint8)
+
+
 def _ms_step(bd: BvssDevice, state: MsBfsState, masks, rows, v2r, ell, *,
              track_levels: bool) -> None:
     """One level over the VSSs given by (masks, rows, v2r), in place on
-    ``state``'s tensors; ``ell`` (an int, or a device int32 in a window) is
-    the level it assigns."""
+    ``state``'s tensors; ``rows`` are the pulled slots' flat int32 scatter
+    rows; ``ell`` (an int, or a device int32 in a window) is the level it
+    assigns."""
     kappa = state.v_curr.shape[1]
-    # Stage 1 — lazy marking via the pull
+    # Stage 1 — lazy marking via the pull, combined by the OR-scatter
     marks = ops.pull_ms(masks, state.f_planes, v2r, sigma=bd.sigma)
-    v_next = state.v_curr.clone().index_reduce_(
-        0, rows.reshape(-1), marks.reshape(-1, kappa), "amax")
+    v_next = combine_marks(state.v_curr, rows, marks.reshape(-1, kappa))
     # Stage 2 — frontier finalization (dense)
     diff = v_next & (1 - state.v_curr)
     new_per_vertex = diff.sum(dim=1, dtype=torch.int32)
@@ -132,6 +153,9 @@ class FusedMsBfs:
     def __init__(self, bd: BvssDevice, kappa: int, *,
                  track_levels: bool = False):
         self.bd, self.kappa, self.track_levels = bd, int(kappa), track_levels
+        # made here, outside any capture: a first use inside the window's
+        # capture would cache it in the graph's pool, freed with the graph
+        self.rows = bd.rows32
         self.state: MsBfsState | None = None
         self._max = torch.zeros((), dtype=torch.int32, device=bd.device)
         self.window = LevelWindow(self._body, self._cond, device=bd.device)
@@ -143,7 +167,7 @@ class FusedMsBfs:
 
     def _body(self) -> None:
         bd, w = self.bd, self.window
-        _ms_step(bd, self.state, bd.masks, bd.row_ids, bd.v2r, w.ell,
+        _ms_step(bd, self.state, bd.masks, self.rows, bd.v2r, w.ell,
                  track_levels=self.track_levels)
         w.ell.add_(1)
         self._cond()
@@ -191,9 +215,10 @@ class BucketedMsBfs:
             padded = np.full(bucket_size(qids.size), bd.num_vss, np.int32)
             padded[: qids.size] = qids
             q = torch.from_numpy(padded).to(bd.device)
-            _ms_step(bd, state, bd.masks.index_select(0, q),
-                     bd.row_ids.index_select(0, q), bd.v2r.index_select(0, q),
-                     state.ell, track_levels=self.track_levels)
+            rows = bd.rows32.view(bd.num_vss_pad, bd.tau).index_select(0, q)
+            _ms_step(bd, state, bd.masks.index_select(0, q), rows.view(-1),
+                     bd.v2r.index_select(0, q), state.ell,
+                     track_levels=self.track_levels)
             state = state._replace(ell=state.ell + 1)
         return state
 

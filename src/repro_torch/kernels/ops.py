@@ -4,6 +4,12 @@ A CUDA tensor goes through the hand-written kernel, a CPU tensor through its
 plain PyTorch version; nothing else decides, and a kernel that fails raises
 (there is no fallback).  Shapes go in as they are: the CUDA kernels mask
 their ragged edge themselves, so nothing is padded.
+
+One deliberate exception: ``core/msbfs.combine_marks`` owns the byteplane
+MS-BFS's combine of marks and picks its own form by device, kernel 6 on
+word views on a CUDA tensor and torch's byte ``index_reduce_`` amax on a
+CPU tensor, where that is cheaper than kernel 6's plain version.  Other
+byteplane combines should call it rather than copy the choice.
 """
 from __future__ import annotations
 

@@ -4,9 +4,11 @@
     out = dest;  out[rows[i], :] |= marks[i, :]   (duplicates OR-combine)
 
 This is what keeps the multi-source state packed: a max-scatter cannot OR
-packed words.  The TPU kernel relies on its grid steps running in order;
-the CUDA kernel ORs each word in with ``atomicOr`` instead, which is exact
-in any order because OR is commutative and idempotent.  Words are
+packed words.  The byteplane MS-BFS calls it too, on 32-bit word views of
+its 0/1 bytes (``core/msbfs.combine_marks``).  The TPU kernel relies on
+its grid steps running in order; the CUDA kernel ORs each word in with
+``atomicOr`` instead, which is exact in any order because OR is
+commutative and idempotent.  Words are
 ``torch.int32`` bit patterns; the kernel reads ``rows`` as int32
 (``BvssDevice.rows32``, the port's int64 ``row_ids`` as int32), the plain
 version takes either width.  :func:`scatter_or` takes CUDA tensors only and

@@ -14,3 +14,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "soak: randomized service soak (step count bounded by "
         "the REPRO_SOAK_STEPS env knob)")
+    config.addinivalue_line(
+        "markers", "chip: needs a CUDA device (runs on the machine with the "
+        "card)")
