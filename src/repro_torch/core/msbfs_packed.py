@@ -13,7 +13,9 @@ same marks as blocked binary matrix products
 (:mod:`repro_torch.kernels.pull_mma_ms_packed`).
 
 The level loop is host-driven, as in the reference: one level, then one
-flag read (is the new frontier empty?).
+flag read (is the new frontier empty?).  A run is the span
+``msbfs_packed.run`` and adds its levels to the counter
+``msbfs_packed.levels`` (:mod:`repro_torch.spans`).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.blest import BvssDevice
 from repro_torch.core.msbfs import frontier_planes
 from repro_torch.kernels import ops, words
@@ -50,8 +53,11 @@ class PackedMsBfs:
         """``sources`` (kappa,) int in bd order, -1 for padding, kappa a
         multiple of 32.  Returns (v_curr packed (n_ext, kw) int32 words,
         far (n_ext,) int32, reach (n_ext,) int32)."""
+        with spans.span("msbfs_packed.run"):
+            return self._run(np.asarray(sources), max_levels)
+
+    def _run(self, sources: np.ndarray, max_levels: int | None):
         bd = self.bd
-        sources = np.asarray(sources)
         kappa = len(sources)
         if kappa % 32:
             raise ValueError(f"the packed layout needs kappa % 32 == 0, got "
@@ -75,6 +81,8 @@ class PackedMsBfs:
             if not bool(f.any()):
                 break
             ell += 1
+        # ell is one past max_levels where the cap ended the run
+        spans.count("msbfs_packed.levels", min(ell, max_levels))
         return v, far, reach
 
     def _level(self, v, f, far, reach, ell: int):

@@ -5,9 +5,10 @@ Dispatch policy (paper §4.2 / §7.1): scale-free-like graphs get
 JaccardWithWindows (maximize mask density / compression ratio); others get
 RCM on G^T (minimize U_div, i.e. cluster the row IDs inside each VSS).
 
-A copy of ``repro.core.reorder``; the one difference is that
-:func:`update_divergence` raises ``ValueError`` on a tau the lane layout
-cannot split, where the reference fails in a reshape.
+A copy of ``repro.core.reorder`` with two differences: :func:`rcm` works a
+BFS level at a time where the reference works a vertex at a time (the same
+permutation), and :func:`update_divergence` raises ``ValueError`` on a tau
+the lane layout cannot split, where the reference fails in a reshape.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core.bvss import Bvss
 from repro_torch.core.graph import Graph
 
@@ -104,72 +106,124 @@ def update_divergence(b: Bvss) -> float:
 def rcm(g: Graph) -> np.ndarray:
     """Inverse permutation pi^{-1}: old id -> new id.  BFS-like traversal
     from pseudo-peripheral starts; same-parent children ordered by ascending
-    degree; final order reversed (per component)."""
-    gs = g.symmetrized()
-    ptrs, cols = gs.csr
-    deg = np.diff(ptrs)
-    n = g.n
-    visited = np.zeros(n, dtype=bool)
-    order = np.empty(n, dtype=np.int64)
-    pos = 0
-    comp_starts = []
-    for seed in np.argsort(deg, kind="stable"):
-        if visited[seed]:
-            continue
-        start = _pseudo_peripheral(ptrs, cols, int(seed))
-        comp_begin = pos
-        visited[start] = True
-        order[pos] = start
-        pos += 1
-        head = comp_begin
-        while head < pos:
-            u = order[head]
-            head += 1
-            nbrs = cols[ptrs[u] : ptrs[u + 1]]
-            new = nbrs[~visited[nbrs]]
-            if new.size:
-                new = np.unique(new)
-                new = new[np.argsort(deg[new], kind="stable")]
+    degree; final order reversed (per component).
+
+    ``repro``'s loop takes one vertex at a time; Cuthill-McKee is level
+    synchronous, so this takes one level at a time and gives the same
+    permutation.  A level's vertices are appended while the one before it
+    is processed in order, each to the first of its parents in that order,
+    a parent's children by (degree, id): so a level is the frontier's
+    unvisited neighbours, each at its first occurrence in frontier order,
+    sorted by (parent position, degree, id)."""
+    with spans.span("reorder.rcm"):
+        ptrs, cols = _symmetric_csr(g)
+        deg = np.diff(ptrs)
+        n = g.n
+        visited = np.zeros(n, dtype=bool)
+        order = np.empty(n, dtype=np.int64)
+        seeds = np.argsort(deg, kind="stable")
+        # the isolated vertices lead the degree order, each a component of
+        # its own that is its own start
+        pos = levels = int(np.count_nonzero(deg == 0))
+        order[:pos] = seeds[:pos]
+        visited[order[:pos]] = True
+        depth = np.full(n, -1, dtype=np.int64)  # _bfs_levels' workspace
+        at = pos
+        while pos < n:
+            at = _next_unvisited(seeds, visited, at)
+            start = _pseudo_peripheral(ptrs, cols, int(seeds[at]), depth)
+            comp_begin = pos
+            visited[start] = True
+            order[pos] = start
+            pos += 1
+            frontier = order[comp_begin:pos]
+            while frontier.size:
+                levels += 1
+                nbrs, lens = _neighbours(ptrs, cols, frontier)
+                parent = np.repeat(np.arange(frontier.size), lens)
+                keep = ~visited[nbrs]
+                nbrs, parent = nbrs[keep], parent[keep]
+                # each vertex at its first occurrence: its earliest parent
+                new, first = np.unique(nbrs, return_index=True)
+                new = new[np.lexsort((new, deg[new], parent[first]))]
                 visited[new] = True
                 order[pos : pos + new.size] = new
+                frontier = order[pos : pos + new.size]
                 pos += new.size
-        comp_starts.append((comp_begin, pos))
-    # reverse within each component (the "R" of RCM)
-    for b, e in comp_starts:
-        order[b:e] = order[b:e][::-1]
-    inv = np.empty(n, dtype=np.int64)
-    inv[order] = np.arange(n)
-    return inv
+            # reverse within each component (the "R" of RCM)
+            order[comp_begin:pos] = order[comp_begin:pos][::-1]
+        spans.count("rcm.levels", levels)
+        inv = np.empty(n, dtype=np.int64)
+        inv[order] = np.arange(n)
+        return inv
 
 
-def _pseudo_peripheral(ptrs, cols, seed: int, rounds: int = 2) -> int:
+def _symmetric_csr(g: Graph) -> tuple[np.ndarray, np.ndarray]:
+    """The CSR of ``g.symmetrized()``: each row's neighbours sorted, with no
+    duplicate.  A graph whose CSR equals its CSC and has strictly increasing
+    rows already is that, and skips the sort of both edge directions."""
+    (ptrs, cols), (in_ptrs, in_cols) = g.csr, g.csc
+    if np.array_equal(ptrs, in_ptrs) and np.array_equal(cols, in_cols):
+        step = np.diff(cols.astype(np.int64))
+        inner = np.ones(step.size, dtype=bool)
+        ends = ptrs[1:-1]
+        inner[ends[(ends > 0) & (ends < cols.size)] - 1] = False
+        if np.all(step[inner] > 0):
+            return ptrs, cols
+    return g.symmetrized().csr
+
+
+def _neighbours(ptrs, cols, frontier: np.ndarray):
+    """The frontier's neighbour lists laid end to end in frontier order, and
+    the length of each."""
+    starts = ptrs[frontier]
+    lens = ptrs[frontier + 1] - starts
+    offs = np.arange(int(lens.sum())) + np.repeat(
+        starts - (np.cumsum(lens) - lens), lens)
+    return cols[offs], lens
+
+
+def _next_unvisited(seeds: np.ndarray, visited: np.ndarray, at: int) -> int:
+    """The first index from ``at`` on whose seed is unvisited, looked for in
+    growing chunks."""
+    step = 1024
+    while True:
+        hit = np.flatnonzero(~visited[seeds[at : at + step]])
+        if hit.size:
+            return at + int(hit[0])
+        at += step
+        step *= 2
+
+
+def _pseudo_peripheral(ptrs, cols, seed: int, depth: np.ndarray,
+                       rounds: int = 2) -> int:
+    """Twice: a BFS from ``u``, then ``u`` := the least id at its deepest
+    level."""
     u = seed
     for _ in range(rounds):
-        lv = _bfs_depths(ptrs, cols, u)
-        far = lv[lv >= 0].max(initial=0)
-        cand = np.nonzero(lv == far)[0]
-        if cand.size == 0:
-            return u
-        u = int(cand[0])
+        u = int(_bfs_levels(ptrs, cols, u, depth)[-1].min())
     return u
 
 
-def _bfs_depths(ptrs, cols, src: int) -> np.ndarray:
-    n = len(ptrs) - 1
-    lv = np.full(n, -1, dtype=np.int64)
-    lv[src] = 0
-    frontier = np.array([src])
-    d = 0
-    while frontier.size:
-        d += 1
-        nxt = []
-        for u in frontier:
-            nbrs = cols[ptrs[u] : ptrs[u + 1]]
-            new = nbrs[lv[nbrs] < 0]
-            lv[new] = d
-            nxt.append(new)
-        frontier = np.unique(np.concatenate(nxt)) if nxt else np.array([], dtype=np.int64)
-    return lv
+def _bfs_levels(ptrs, cols, src: int, depth: np.ndarray) -> list:
+    """The BFS levels from ``src``, one array each (in no order within a
+    level); ``depth`` (all -1) is a workspace, left all -1 again."""
+    depth[src] = 0
+    out = [np.array([src])]
+    while True:
+        nbrs, _ = _neighbours(ptrs, cols, out[-1])
+        new = nbrs[depth[nbrs] < 0]
+        if not new.size:
+            break
+        # one of each: every copy writes its position, one of them stays
+        at = np.arange(new.size)
+        depth[new] = at
+        new = new[depth[new] == at]
+        depth[new] = len(out)
+        out.append(new)
+    for lv in out:
+        depth[lv] = -1
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,13 @@ The names (:data:`NAMES`) are a contract with whatever reads them:
   and ``host_end.permute`` (the numpy permutation to original ids): the
   answer's way to the caller;
 * the counter ``window.levels``: the levels a window ran, as its read
-  finds them.
+  finds them;
+* ``reorder.rcm``: ``core/reorder.rcm``, the host's RCM in preprocessing,
+  with the counter ``rcm.levels``: its BFS levels summed over the graph's
+  components (an isolated vertex is one);
+* ``msbfs_packed.run``: one ``core/msbfs_packed.PackedMsBfs.run``, with
+  the counter ``msbfs_packed.levels``: the levels it ran, each one a
+  host read of the frontier flag.
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ import torch
 
 NAMES = ("blest.bfs", "blest.closeness", "closeness.batch", "msbfs.init",
          "window.run", "window.capture", "host_end", "host_end.to_host",
-         "host_end.permute")
+         "host_end.permute", "reorder.rcm", "msbfs_packed.run")
 
 _on = False
 _NULL = contextlib.nullcontext()
