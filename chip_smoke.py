@@ -316,7 +316,9 @@ PACKED_SOURCES = 256         # kron: the packed batch, kw = 8
 ROAD_SOURCES = 32
 ROAD_LEVEL = 1000            # road: the kernels' state, mid-run
 CHUNK_VSS = 16384            # plain versions at full size run in chunks
-SS_KERNELS = ("pull_ss", "pull_ss_packed", "frontier_sweep")
+# launched on the single-source main path (kernel 2 is held and timed in
+# the pool and at production shapes: the packed levels run the pull-scatter)
+SS_KERNELS = ("pull_ss", "pull_scatter_ss_packed", "frontier_sweep")
 MS_KERNELS = ("pull_ms", "pull_ms_packed", "scatter_or", "pull_mma_ms_packed")
 SERVE_PATH_KERNELS = ("pull_ms", "scatter_or", "pull_scatter_ms_packed",
                       "pull_ms_packed_queued", "pull_scatter_mma_ms_packed")
@@ -476,6 +478,13 @@ class Smoke:
             "pull_ss_packed": dict(
                 fn=pull_ss.pull_ss_packed, plain=kref.pull_ss_packed_ref,
                 source=csrc, replaces="src/repro/kernels/pull_ss.py:76"),
+            # kernel 2 fused with the level's max-scatter (no Pallas kernel
+            # of its own: the reference's pull and its XLA scatter)
+            "pull_scatter_ss_packed": dict(
+                fn=pull_ss.pull_scatter_ss_packed,
+                plain=kref.pull_scatter_ss_packed_ref, source=csrc,
+                replaces="src/repro/kernels/pull_ss.py:76 + "
+                         "src/repro/core/blest.py:136"),
             "frontier_sweep": dict(
                 fn=frontier_sweep.frontier_sweep,
                 plain=kref.frontier_sweep_ref, source=csrc,
@@ -558,6 +567,8 @@ class Smoke:
         self.instrument_state_builds()
         self.family_graphs: dict = {}  # scale-10 graphs, one object each
         self.road_kernels: dict = {}  # name -> road-shape time and bound
+        # graph label -> the pull-scatter's times at its dense level
+        self.ss_scatter: dict = {}
         self.oracle: dict = {}  # (graph label, source) -> oracle levels
         self.graphs_n: dict = {}  # graph label -> n
 
@@ -712,6 +723,7 @@ class Smoke:
                     k = self.kernels["pull_ss_packed"]
                     self.same("pull_ss_packed", k["fn"](words, alphas),
                               k["plain"](words, alphas), what)
+                    self.pull_scatter_case(rng, b, what)
             self.pull_ss_odd_case(rng, (16, 128, 48)[case % 3],
                                   int(rng.integers(1, 3000)),
                                   f"pool case {case}")
@@ -720,6 +732,23 @@ class Smoke:
                             f"pool case {case}")
             self.sweep_odd_case(rng, sigma * int(rng.integers(1, 40)), sigma,
                                 f"pool case {case}")
+
+    def pull_scatter_case(self, rng, b, what):
+        """pull_scatter_ss_packed on a pool graph's BVSS on the card (spread
+        rows, padding VSSs on the sentinel set), random 0/1 visited bytes
+        and frontier words (all zero in some cases)."""
+        np = self.np
+        bd = self.blest.to_device(b, device=self.dev)
+        k = self.kernels["pull_scatter_ss_packed"]
+        v = self.t((rng.random(bd.n_ext) < 0.3).astype(np.uint8))
+        f = rng.integers(0, 1 << bd.sigma, bd.num_sets_ext).astype(np.uint8)
+        if rng.random() < 0.15:
+            f[:] = 0
+        f[bd.num_sets] = 0
+        args = (self.t(f), bd.v2r, bd.rows32)
+        self.same("pull_scatter_ss_packed",
+                  k["fn"](v.clone(), bd.masks_packed, *args),
+                  k["plain"](v.clone(), bd.masks_packed, *args), what)
 
     def pull_ss_odd_case(self, rng, tau, n_v, what):
         """pull_ss on any mask and alpha bytes (all-zero alphas in some
@@ -827,6 +856,18 @@ class Smoke:
             })
         return rows
 
+    def pull_scatter_kernel_row(self, label, counts):
+        """The ``{"kernels"}`` row of pull_scatter_ss_packed: its launches
+        on the main path, and its times at ``label``'s dense level (from
+        :meth:`level_cost`), against its byte bound, its plain version and
+        the Stage 1 it replaces (kernel 2 + the scatter-max)."""
+        k = self.kernels["pull_scatter_ss_packed"]
+        return {"name": "pull_scatter_ss_packed", "route": "cuda",
+                "source": k["source"], "replaces": k["replaces"],
+                "launches": counts["pull_scatter_ss_packed"],
+                "max_abs_err": k["max_abs_err"], "library_ms": None,
+                "graph": label, **self.ss_scatter[label]}
+
     # ------------------------------------------------------- BFS phases --
     def check_bfs(self, b, g, sources, combos, label):
         for s in sources:
@@ -870,8 +911,12 @@ class Smoke:
         with a flag read after it (a host sync, as the port's loop was
         before its windows) and against a level in a window (a windowed
         ``FusedBfs`` from ``src``, over its levels); the level's
-        frontier_sweep held against its plain version.  Returns the level's
-        alphas."""
+        frontier_sweep and pull_scatter_ss_packed held against their plain
+        versions, the latter also against the scatter-max of kernel 2's
+        marks, and timed beside kernel 2 + the scatter-max (the level's
+        Stage 1 before it), its plain version and its byte bound, each
+        timed call on a fresh copy of V (kept in ``self.ss_scatter[label]``
+        for the kernel's row).  Returns the level's alphas."""
         blest, ops, bd = self.blest, self.ops, b.bd
         state = blest.init_state(bd, int(b.perm[src]))
         for _ in range(depth):
@@ -885,6 +930,24 @@ class Smoke:
         # repro's layout: every zero-mask slot scatters to the sentinel n_pad
         sentinel_rows = self.torch.where(bd.masks.reshape(-1) != 0, rows,
                                          bd.n_pad)
+        lazy = b.stats.lazy
+        k = self.kernels["pull_scatter_ss_packed"]
+        scatter_args = (bd.masks_packed, state.f_words, bd.v2r, bd.rows32)
+        v_buf = state.v.clone()
+        what = f"{label} dense level at depth {depth}"
+        got = k["fn"](v_buf, *scatter_args)
+        self.same("pull_scatter_ss_packed", got,
+                  k["plain"](state.v.clone(), *scatter_args), what)
+        self.same("pull_scatter_ss_packed", got, v_next,
+                  f"{what}, against the scatter-max")
+
+        def old_stage1():
+            mm = ops.unpack_marks(ops.pull_ss_packed(
+                bd.masks_packed, state.f_words.index_select(0, bd.v2r)))
+            mm = mm.reshape(-1)
+            if not lazy:
+                mm = mm & (1 - state.v.index_select(0, rows))
+            return state.v.scatter_reduce(0, rows, mm, "amax")
 
         def level():
             return blest._level_dense(bd, state, lazy=b.stats.lazy,
@@ -907,11 +970,26 @@ class Smoke:
                 1 - state.v.index_select(0, rows)),
             "frontier_sweep": lambda: ops.frontier_sweep(
                 state.v, v_next, state.level, state.ell, sigma=bd.sigma),
+            # the kernel on a fresh copy of V each call (on its own output
+            # a second call would store nothing), and the copy alone
+            "v_copy": lambda: v_buf.copy_(state.v),
+            "pull_scatter_ss_packed_with_copy": lambda: k["fn"](
+                v_buf.copy_(state.v), *scatter_args),
+            "stage1_before": old_stage1,
             "level": level,
             "level_with_flag_read": lambda: bool(level().f_words.any()),
         }
         n_v, tau = bd.masks.shape
-        stage_ms = {k: self.time_ms(f) for k, f in stages.items()}
+        stage_ms = {name: self.time_ms(f) for name, f in stages.items()}
+        plain_ms = self.time_ms(
+            lambda: k["plain"](v_buf.copy_(state.v), *scatter_args),
+            iters=3, warmup=1)
+        # what the pull-scatter needs to read: v2r and the frontier words,
+        # the masks of the VSSs with a nonzero alpha, a row a marked slot
+        active_vss = int((alphas != 0).sum())
+        marked = int(m.sum())
+        scatter_bytes = (4 * n_v + bd.num_sets_ext + tau * active_vss
+                         + 4 * marked)
         # a level in a window: a whole windowed BFS from src (its reads
         # once a window and its skipped launches included), per level
         fused = blest.FusedBfs(bd, lazy=b.stats.lazy, packed=True)
@@ -926,13 +1004,31 @@ class Smoke:
                "window_pool_bytes": fused.window.pool_bytes,
                "stage_ms": stage_ms,
                # the two kernels' device time, without the host's enqueue
-               "graph_ms": {k: self.time_graph_ms(stages[k])
-                            for k in ("pull_ss_packed", "frontier_sweep")},
-               "bound_ms": {k: nbytes / HBM_BYTES_PER_S * 1e3
-                            for k, nbytes in (
+               "active_vss": active_vss, "marked_slots": marked,
+               "graph_ms": {name: self.time_graph_ms(stages[name])
+                            for name in ("pull_ss_packed", "frontier_sweep",
+                                         "v_copy",
+                                         "pull_scatter_ss_packed_with_copy",
+                                         "stage1_before")},
+               "bound_ms": {name: nbytes / HBM_BYTES_PER_S * 1e3
+                            for name, nbytes in (
                                 ("pull_ss_packed", 2 * n_v * tau + n_v),
                                 ("frontier_sweep", 11 * bd.n_ext
-                                 + 2 * (bd.n_ext // bd.sigma)))}}
+                                 + 2 * (bd.n_ext // bd.sigma)),
+                                ("pull_scatter_ss_packed", scatter_bytes))}}
+        st, gr = row["stage_ms"], row["graph_ms"]
+        self.ss_scatter[label] = {
+            # the kernel's own time: with the copy, less the copy's
+            "ms": (st["pull_scatter_ss_packed_with_copy"] - st["v_copy"]),
+            "graph_ms": (gr["pull_scatter_ss_packed_with_copy"]
+                         - gr["v_copy"]),
+            "plain_ms": plain_ms,
+            "bound_ms": row["bound_ms"]["pull_scatter_ss_packed"],
+            "bound_by": "bytes", "level": depth, "lazy": lazy,
+            "active_vss": active_vss, "marked_slots": marked,
+            "with_copy_graph_ms": gr["pull_scatter_ss_packed_with_copy"],
+            "v_copy_graph_ms": gr["v_copy"],
+            "stage1_before_graph_ms": gr["stage1_before"]}
         self.bfs_rows.append(row)
         log(f"{label} one dense level at depth {depth}: {row['stage_ms']}")
         return alphas
@@ -3703,6 +3799,7 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int,
     smoke.time_bfs(b, g, sources, kron_label)
     smoke.level_cost(b, sources[0], kron_label, depth=2)
     kernel_rows = smoke.production_kernels(b.bd, counts)
+    kernel_rows.append(smoke.pull_scatter_kernel_row(kron_label, counts))
 
     log(f"phase 3b: multi-source path, kron scale {kron_scale}")
     ops.reset_launch_counts()
@@ -3734,6 +3831,8 @@ def run(smoke: Smoke, kron_scale: int, road_scale: int,
     smoke.time_bfs(b, g, road_sources, road_label)
     smoke.road_pull_ss(b.bd, smoke.level_cost(b, 0, road_label, depth=3),
                        depth=3)
+    smoke.road_kernels["pull_scatter_ss_packed"] = smoke.ss_scatter[
+        road_label]
     smoke.road_ms_kernels(b, road_ms_srcs)
     road = (b, g, road_label, road_sources)
     del b, g

@@ -16,10 +16,19 @@ Two drivers, as in ``repro.core.blest``:
   (core/switching.py).
 
 Update mechanics:
-* ``lazy=True``  (Alg. 3): Stage 1 marks V_next unconditionally (an exact
-  scatter-max), Stage 2 is the fused frontier sweep.
-* ``lazy=False`` (Alg. 2): the eager variant gathers V[row_ids] and filters
-  marks before scattering.
+* ``lazy=True``  (Alg. 3): Stage 1 marks V_next unconditionally, Stage 2 is
+  the fused frontier sweep.
+* ``lazy=False`` (Alg. 2): the eager variant marks only rows V has not
+  visited.
+
+Stage 1 of a packed level is one op, ``ops.pull_scatter_ss_packed``: the
+pull, and a store of 1 in V_next (a copy of V) at each marked slot's row,
+which on 0/1 visited bytes is the max-scatter of the marks; duplicate rows
+need no combine.  On a copy of V that op is both mechanics (a row V has
+visited reads 1 already), so ``lazy`` tells them apart on an unpacked level
+alone (``packed=False``), which pulls its byte marks with kernel 1, filters
+them eagerly or not, and scatters them with torch's ``scatter_reduce``
+amax.
 
 The tensors' device picks the kernels (:mod:`repro_torch.kernels.ops`):
 CUDA kernels for a CUDA :class:`BvssDevice`, plain PyTorch on the CPU.
@@ -100,8 +109,8 @@ class BvssDevice:
     def rows32(self) -> torch.Tensor:
         """``row_ids`` flattened as int32 (n_ext < 2**31), made on first
         use: the scatter rows of the packed OR-scatters (``scatter_or`` and
-        the serve engine's fused dense kernels), which read 4 bytes a slot
-        where ``row_ids`` has 8."""
+        the serve engine's fused dense kernels) and of the single-source
+        pull-scatter, which read 4 bytes a slot where ``row_ids`` has 8."""
         return self.row_ids.reshape(-1).to(torch.int32)
 
 
@@ -170,6 +179,10 @@ class BfsState(NamedTuple):
     level: torch.Tensor    # (n_ext,) int32
     f_words: torch.Tensor  # (num_sets_ext,) uint8 — current frontier words
     ell: int | torch.Tensor  # next level (a device int32 in a window)
+    # (n_ext,) uint8 the packed level copies V into and scatters V_next in
+    # (the fused driver's, made outside its window's capture); None: a new
+    # one each level
+    v_next: torch.Tensor | None = None
 
 
 def init_state(bd: BvssDevice, src: int) -> BfsState:
@@ -192,19 +205,28 @@ def _check_packed(bd: BvssDevice, packed: bool) -> None:
                          "use packed=False")
 
 
-def _stage1_marks(masks, alphas, *, packed: bool) -> torch.Tensor:
-    if packed:
-        return ops.unpack_marks(ops.pull_ss_packed(masks, alphas))
-    return ops.pull_ss(masks, alphas)
-
-
 def _level_dense(bd: BvssDevice, state: BfsState, *, lazy: bool,
                  packed: bool) -> BfsState:
     """One BFS level over all VSSs (queue implicit via zero frontier words)."""
-    masks = bd.masks_packed if packed else bd.masks
-    alphas = state.f_words.index_select(0, bd.v2r)
-    marks = _stage1_marks(masks, alphas, packed=packed)
+    if packed:
+        return _pull_scatter_and_sweep(bd, state, bd.masks_packed, bd.v2r,
+                                       bd.rows32)
+    marks = ops.pull_ss(bd.masks, state.f_words.index_select(0, bd.v2r))
     return _scatter_and_sweep(bd, state, marks, bd.row_ids, lazy=lazy)
+
+
+def _pull_scatter_and_sweep(bd: BvssDevice, state: BfsState, masks_packed,
+                            v2r, rows32) -> BfsState:
+    """A packed level over the VSSs of (masks_packed, v2r) whose flat int32
+    rows are ``rows32``: Stage 1 in one op (lazy and eager alike), then the
+    sweep."""
+    v_next = state.v_next
+    if v_next is None:
+        v_next = torch.empty_like(state.v)
+    v_next.copy_(state.v)
+    ops.pull_scatter_ss_packed(v_next, masks_packed, state.f_words, v2r,
+                               rows32)
+    return _sweep(bd, state, v_next)
 
 
 def _scatter_and_sweep(bd: BvssDevice, state: BfsState, marks, row_ids, *,
@@ -216,12 +238,15 @@ def _scatter_and_sweep(bd: BvssDevice, state: BfsState, marks, row_ids, *,
         m = m & (1 - state.v.index_select(0, rows))
     # rows repeat (a row pulls in several slice sets), so the max must
     # combine duplicates: scatter_reduce does
-    v_next = state.v.scatter_reduce(0, rows, m, "amax")
+    return _sweep(bd, state, state.v.scatter_reduce(0, rows, m, "amax"))
+
+
+def _sweep(bd: BvssDevice, state: BfsState, v_next) -> BfsState:
     v_new, level_new, f_words, _active = ops.frontier_sweep(
         state.v, v_next, state.level, state.ell, sigma=bd.sigma)
     # the sentinel slice set's word stays zero: its sigma slots of n_ext are
     # never written by real slices; padding slices write zeros only
-    return BfsState(v_new, level_new, f_words, state.ell + 1)
+    return BfsState(v_new, level_new, f_words, state.ell + 1, state.v_next)
 
 
 def bfs_fused(
@@ -246,10 +271,11 @@ def clamp_int32(x: int) -> int:
 class FusedBfs:
     """Fused BFS bound to one graph (source is a runtime arg).
 
-    Holds the loop-carried state (visited bytes, levels, frontier words)
-    and the level window over it, captured at the first call and replayed
-    by every later one: the loop is ``repro``'s ``cond`` (a frontier word
-    set and ``ell <= max_levels``) around :func:`_level_dense`."""
+    Holds the loop-carried state (visited bytes, levels, frontier words),
+    where packed the buffer V_next is scattered in, and the level window
+    over it, captured at the first call and replayed by every later one:
+    the loop is ``repro``'s ``cond`` (a frontier word set and
+    ``ell <= max_levels``) around :func:`_level_dense`."""
 
     bd: BvssDevice
     lazy: bool = True
@@ -259,6 +285,13 @@ class FusedBfs:
         _check_packed(self.bd, self.packed)
         bd, dev = self.bd, self.bd.device
         self._v = torch.zeros(bd.n_ext, dtype=torch.uint8, device=dev)
+        self._v_next = None
+        if self.packed:
+            # made here, outside any capture: a first use inside the
+            # window's capture would cache rows32 in the graph's pool,
+            # freed with the graph
+            _ = bd.rows32
+            self._v_next = torch.empty_like(self._v)
         self._level = torch.full((bd.n_ext,), UNREACHED, dtype=torch.int32,
                                  device=dev)
         self._f = torch.zeros(bd.num_sets_ext, dtype=torch.uint8, device=dev)
@@ -272,7 +305,7 @@ class FusedBfs:
     def _body(self) -> None:
         w = self.window
         st = _level_dense(self.bd, BfsState(self._v, self._level, self._f,
-                                            w.ell),
+                                            w.ell, self._v_next),
                           lazy=self.lazy, packed=self.packed)
         self._v.copy_(st.v)
         self._level.copy_(st.level)
@@ -347,12 +380,17 @@ class BucketedBfs:
 
     def _queued_level(self, state: BfsState, qids: torch.Tensor) -> BfsState:
         bd = self.bd
-        masks = (bd.masks_packed if self.packed else bd.masks)
-        masks = masks.index_select(0, qids)
-        rows = bd.row_ids.index_select(0, qids)
-        alphas = state.f_words.index_select(0, bd.v2r.index_select(0, qids))
-        marks = _stage1_marks(masks, alphas, packed=self.packed)
-        return _scatter_and_sweep(bd, state, marks, rows, lazy=self.lazy)
+        v2r = bd.v2r.index_select(0, qids)
+        if self.packed:
+            rows = bd.rows32.view(bd.num_vss_pad, bd.tau).index_select(0, qids)
+            return _pull_scatter_and_sweep(
+                bd, state, bd.masks_packed.index_select(0, qids), v2r,
+                rows.view(-1))
+        marks = ops.pull_ss(bd.masks.index_select(0, qids),
+                            state.f_words.index_select(0, v2r))
+        return _scatter_and_sweep(bd, state, marks,
+                                  bd.row_ids.index_select(0, qids),
+                                  lazy=self.lazy)
 
     def _sync(self):
         if self.bd.device.type == "cuda":

@@ -43,6 +43,8 @@ SIGNATURES = {
     "blest_ss": {
         "blest_pull_ss": ([_P, _P, _P, _I64, _I64, _P], _INT),
         "blest_pull_ss_packed": ([_P, _P, _P, _I64, _I64, _P], _INT),
+        "blest_pull_scatter_ss_packed": (
+            [_P, _P, _P, _P, _P, _I64, _I64, _P], _INT),
         "blest_frontier_sweep": (
             [_P, _P, _P, _P, _P, _P, _P, _I64, _INT, _INT, _P], _INT),
         "blest_frontier_sweep_dev": (

@@ -1,5 +1,6 @@
 // Single-source BLEST kernels for Hopper (sm_90a): the Stage-1 pull in its
-// byte and packed-word layouts, and the fused Stage-2 frontier sweep.
+// byte and packed-word layouts, the packed pull fused with its scatter into
+// V_next (the pull-scatter), and the fused Stage-2 frontier sweep.
 //
 // Built by repro_torch/kernels/_build.py with nvcc into a shared library
 // with a plain C interface, loaded with ctypes.  Every entry point takes
@@ -7,7 +8,7 @@
 // nothing, does not synchronise, and returns cudaGetLastError() so that the
 // Python wrapper can raise on a refused launch.
 //
-// What bounds them: all three are integer passes that do a few ALU
+// What bounds them: all four are integer passes that do a few ALU
 // operations per byte they move, so device-memory bandwidth bounds them
 // (bytes moved / 3.35 TB/s on an H100 SXM).  Consecutive threads touch
 // consecutive bytes or words, so every warp's loads and stores coalesce,
@@ -178,6 +179,110 @@ __global__ void pull_ss_packed_kernel(const uint32_t* __restrict__ masks,
     const uint32_t t = masks[i] & a;
     const uint32_t nz = ((t & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | t;
     marks[i] = (nz >> 7) & 0x01010101u;
+  }
+}
+
+// The pull-scatter: kernel 2's pull and the combine of its marks into
+// V_next in one pass.  It stands for repro/kernels/pull_ss.py::
+// pull_ss_packed followed by repro/core/blest.py's XLA max-scatter, and on
+// the port's packed single-source levels it replaces kernel 2 above,
+// core/blest.py's torch scatter_reduce amax (a 32-bit CAS loop a slot) and
+// its eager visited gather.  With v_next a copy of v_curr on entry, for each
+// slot s (byte b of word i, VSS v = i / words):
+//   mark = (byte b of masks[i]) & f_words[v2r[v]] != 0
+//   mark and v_next[rows[s]] == 0  ->  v_next[rows[s]] = 1
+// On 0/1 bytes the max the scatter took is this store of 1: every writer of
+// a byte writes the same value, so there are no atomics and no combine
+// pass, the marks never reach memory, and a byte store leaves its
+// neighbours as they are.  The one instance is both update mechanics:
+// V_next starts as V and only gains 1s, so a row V has visited reads 1 in
+// V_next and is not stored, which is all that eager's (Alg. 2) filter on V
+// did, and the V_next lazy (Alg. 3) gives is the same.  A slot with a zero
+// mask (padding; its row is spread over n_ext) marks nothing, so its row is
+// never read; a padding VSS points at the sentinel set, whose frontier word
+// is 0.
+//
+// What bounds it: device-memory bytes.  v2r once (4 bytes a VSS, which its
+// words share through the cache) and the frontier words; the masks of the
+// VSSs with a nonzero alpha (tau bytes each); 16 bytes of rows for each
+// word with a mark (4 a slot); the byte reads and stores of V_next, n_ext
+// bytes, which stay in L2.  A thin level reads little more than v2r; one
+// where every slot marks reads 5 tau + 4 bytes a VSS.  A hub's row is marked by many VSSs: stored by each, those
+// stores met at one address in L2 and took the fat levels of a scale-free
+// graph two to three times as long as reading the byte first and storing
+// only a 0 does (PERF.md §6).
+//
+// Design.  A thread takes kScatterWords words kScatterThreads apart in a
+// chunk of kScatterThreads * kScatterWords, on a loop over chunks with one
+// wave of resident blocks (as the byte pull).  At tau = 128 a VSS is 32
+// words, so a warp's words share one VSS and its alpha, and a warp whose
+// alpha is zero (a VSS outside the frontier: most of a thin level's) loads
+// neither masks nor rows.  Each stage issues its loads for all of a
+// thread's words before any is used: v2r, the frontier words, the masks of
+// the words with a nonzero alpha, the rows of the words with a mark (one
+// 16-byte load, four slots; the wrapper hands 16-byte aligned rows), then
+// for each marked slot the byte of V_next and, where it is 0, the store.
+// A word's VSS is i >> shift where words is a power of two, else one 32-bit
+// division; indices are 32-bit, so the launcher refuses 2^31 words or
+// more.  kScatterWords = 4 by measurement
+// (PERF.md §6: 2, 8 and 16 were no faster).
+constexpr int kScatterThreads = 256;
+constexpr int kScatterWords = 4;  // words a thread
+
+__device__ __forceinline__ int32_t int4_lane(const int4& r, int b) {
+  return b == 0 ? r.x : b == 1 ? r.y : b == 2 ? r.z : r.w;
+}
+
+__global__ void __launch_bounds__(kScatterThreads)
+    pull_scatter_ss_packed_kernel(uint8_t* __restrict__ v_next,
+                                  const uint32_t* __restrict__ masks,
+                                  const uint8_t* __restrict__ f_words,
+                                  const int32_t* __restrict__ v2r,
+                                  const int4* __restrict__ rows,
+                                  uint32_t total, uint32_t words, int shift) {
+  constexpr uint32_t kChunk = kScatterThreads * kScatterWords;
+  for (uint32_t i0 = blockIdx.x * kChunk + threadIdx.x; i0 < total;
+       i0 += gridDim.x * kChunk) {
+    int32_t set[kScatterWords];
+#pragma unroll
+    for (int k = 0; k < kScatterWords; ++k) {
+      const uint32_t i = i0 + k * kScatterThreads;
+      set[k] = i < total ? __ldg(v2r + (shift >= 0 ? i >> shift : i / words))
+                         : -1;
+    }
+    uint32_t alpha[kScatterWords];
+#pragma unroll
+    for (int k = 0; k < kScatterWords; ++k) {
+      alpha[k] = set[k] >= 0 ? __ldg(f_words + set[k]) * 0x01010101u : 0u;
+    }
+    // per word, the high bit of each byte whose slot marks
+    uint32_t hit[kScatterWords];
+#pragma unroll
+    for (int k = 0; k < kScatterWords; ++k) {
+      hit[k] = 0;
+      if (alpha[k]) {
+        const uint32_t t = __ldg(masks + i0 + k * kScatterThreads) & alpha[k];
+        hit[k] = (((t & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | t) & 0x80808080u;
+      }
+    }
+    int4 r[kScatterWords];
+#pragma unroll
+    for (int k = 0; k < kScatterWords; ++k) {
+      r[k] = hit[k] ? __ldg(rows + i0 + k * kScatterThreads)
+                    : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int k = 0; k < kScatterWords; ++k) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (!(hit[k] & (0x80u << (8 * b)))) continue;
+        const int32_t row = int4_lane(r[k], b);
+        // a row already set is not stored again: a hub's row is read by
+        // every VSS that marks it, and stored by the first few (a stale 0
+        // from the cache costs one more store of 1, never a wrong byte)
+        if (v_next[row] == 0) v_next[row] = 1;
+      }
+    }
   }
 }
 
@@ -433,6 +538,36 @@ int blest_pull_ss_packed(const void* masks, const void* alphas, void* marks,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(masks), static_cast<const uint8_t*>(alphas),
       static_cast<uint32_t*>(marks), total, words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// v_next in place, a copy of V; rows 16-byte aligned, n_v * words below
+// 2^31.
+int blest_pull_scatter_ss_packed(void* v_next, const void* masks,
+                                 const void* f_words, const void* v2r,
+                                 const void* rows, int64_t n_v, int64_t words,
+                                 void* stream) {
+  const int64_t total = n_v * words;
+  if (n_v < 1 || words < 1 || total > INT32_MAX
+      || reinterpret_cast<uintptr_t>(rows) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int shift = -1;
+  if ((words & (words - 1)) == 0) {
+    for (shift = 0; (int64_t{1} << shift) < words; ++shift) {
+    }
+  }
+  static const int64_t wave = wave_blocks(pull_scatter_ss_packed_kernel,
+                                          kScatterThreads);
+  const int64_t chunks = (total + kScatterThreads * kScatterWords - 1)
+                         / (kScatterThreads * kScatterWords);
+  pull_scatter_ss_packed_kernel<<<
+      static_cast<unsigned>(chunks < wave ? chunks : wave), kScatterThreads,
+      0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(v_next), static_cast<const uint32_t*>(masks),
+      static_cast<const uint8_t*>(f_words), static_cast<const int32_t*>(v2r),
+      static_cast<const int4*>(rows), static_cast<uint32_t>(total),
+      static_cast<uint32_t>(words), shift);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,7 +26,8 @@ from repro_torch.kernels import pull_ss as _pull_ss
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import scatter_or as _scatter_or
 
-KERNELS = (_pull_ss.pull_ss, _pull_ss.pull_ss_packed, _sweep.frontier_sweep,
+KERNELS = (_pull_ss.pull_ss, _pull_ss.pull_ss_packed,
+           _pull_ss.pull_scatter_ss_packed, _sweep.frontier_sweep,
            _pull_ms.pull_ms, _pull_ms_packed.pull_ms_packed,
            _scatter_or.scatter_or, _mma.pull_mma_ms_packed,
            _pull_scatter.pull_scatter_ms_packed,
@@ -52,6 +53,15 @@ def pull_ss_packed(masks_packed: torch.Tensor,
     if _on_cpu(masks_packed):
         return kref.pull_ss_packed_ref(masks_packed, alphas)
     return _pull_ss.pull_ss_packed(masks_packed, alphas)
+
+
+def pull_scatter_ss_packed(v_next, masks_packed, f_words, v2r,
+                           rows) -> torch.Tensor:
+    if _on_cpu(v_next):
+        return kref.pull_scatter_ss_packed_ref(v_next, masks_packed, f_words,
+                                               v2r, rows)
+    return _pull_ss.pull_scatter_ss_packed(v_next, masks_packed, f_words,
+                                           v2r, rows)
 
 
 def frontier_sweep(v_curr, v_next, level, ell: int | torch.Tensor, *,

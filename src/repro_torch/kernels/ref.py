@@ -46,6 +46,26 @@ def pull_ss_packed_ref(masks_packed: torch.Tensor,
     return ((nz >> 7) & _BYTE_LSB).to(torch.int32)
 
 
+def pull_scatter_ss_packed_ref(v_next: torch.Tensor,
+                               masks_packed: torch.Tensor,
+                               f_words: torch.Tensor, v2r: torch.Tensor,
+                               rows: torch.Tensor) -> torch.Tensor:
+    """The packed pull fused with the scatter of its marks, in place on
+    ``v_next`` (returned), a copy of V on entry.
+
+    Each slot that :func:`pull_ss_packed_ref` marks with the alpha
+    ``f_words[v2r[vss]]`` stores a 1 at ``v_next[rows[slot]]``.  On 0/1
+    visited bytes that is the max-scatter of the marks (a store of 1 is
+    idempotent, so duplicate rows need no combine), with or without the
+    eager filter on V: a row V has visited is 1 in its copy already.
+    rows: (N_v * tau,) int32 or int64.
+    """
+    marks = pull_ss_packed_ref(masks_packed, f_words.index_select(0, v2r))
+    # masked_select: a boolean index takes ms on a many-threaded CPU
+    hit = torch.masked_select(rows, marks.view(torch.uint8).reshape(-1) != 0)
+    return v_next.index_fill_(0, hit.long(), 1)
+
+
 def pull_ms_ref(masks: torch.Tensor, f_tiles: torch.Tensor) -> torch.Tensor:
     """Multi-source pull: the (popc, AND) product of paper Alg. 5.
 

@@ -225,7 +225,7 @@ def test_cpu_serve_kernels_launch_nothing():
     ops.pull_scatter_mma_ms_packed(v, tiles.a_planes, _t(f), tiles.v2r,
                                    tiles.rows, sigma=bd.sigma)
     counts = ops.launch_counts()
-    assert len(ops.KERNELS) == 13
+    assert len(ops.KERNELS) == 14
     assert {"pull_scatter_ms_packed", "pull_ms_packed_queued",
             "pull_scatter_mma_ms_packed"} <= set(counts)
     assert set(counts.values()) == {0}
